@@ -2,11 +2,11 @@
 """Example 4 — Distributed equilibrium solve on a device mesh.
 
 Runs the full Anderson-accelerated multigrid-Picard Grad-Shafranov solve
-with the elliptic inner solve Z-slab-sharded over an 8-device
+with the elliptic inner solve Z-slab-sharded over a 4-device
 ``jax.sharding.Mesh`` (halo exchange via ``lax.ppermute`` inside
 ``shard_map``, replicated multigrid coarse levels), and checks span-rel
-parity against the single-device solve.  On real hardware the same program
-runs over TPU ICI; here it uses 8 virtual CPU devices so the example runs
+parity against the single-device solve.  On a 4-GPU host the same program
+runs over NVLink; here it uses 4 virtual CPU devices so the example runs
 anywhere (reference counterpart: ``mpi_domain.rs: distributed_gs_solve``).
 
 Run:  python examples/04_sharded_mesh_solve.py
@@ -21,7 +21,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (
-        flags + " --xla_force_host_platform_device_count=8").strip()
+        flags + " --xla_force_host_platform_device_count=4").strip()
 
 import jax  # noqa: E402
 
@@ -62,7 +62,7 @@ def main() -> None:
     print(f"single device : converged={bool(ref.converged)} in "
           f"{int(ref.iterations)} iterations")
 
-    for n_dev in (2, 8):
+    for n_dev in (2, 4):
         mesh = make_z_mesh(n_dev)
         res = solve_equilibrium_sharded(cfg, mesh, dtype=jnp.float64)
         span = float(jnp.max(ref.psi) - jnp.min(ref.psi))

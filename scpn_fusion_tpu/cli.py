@@ -1,7 +1,7 @@
 """Command-line interface: `python -m scpn_fusion_tpu.cli <mode> ...`.
 
 The L6 surface (reference: ``cli.py`` console script with a 30-mode registry
-dispatched through *subprocesses*, ``cli.py:39-243``).  TPU-first redesign:
+dispatched through *subprocesses*, ``cli.py:39-243``).  accelerator-first redesign:
 modes are plain function calls in-process — there is no subprocess
 indirection to amortise because solvers are compiled functions, not scripts.
 argparse only (no third-party CLI dependency).
@@ -718,7 +718,7 @@ def _mode_stellarator_replay(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="scpn-fusion-tpu",
-        description="TPU-native plasma physics and control framework")
+        description="JAX-native plasma physics and control framework")
     sub = p.add_subparsers(dest="mode", required=True)
 
     k = sub.add_parser("kernel", help="fixed-boundary GS solve from config")

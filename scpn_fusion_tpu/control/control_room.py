@@ -1,6 +1,6 @@
 """Fusion control room: VDE closed loop + rendering, scan-fused on device.
 
-TPU-native re-design of the reference's control-room simulation
+Compiled re-design of the reference's control-room simulation
 (``control/fusion_control_room.py``): there, ``run_control_room`` (:356-535)
 steps a Python loop per frame — reduced vertical-displacement dynamics
 (:119-132), a noisy probe (:141-144), a NumPy Kalman observer (:146-184), a

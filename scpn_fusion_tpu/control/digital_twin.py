@@ -1,6 +1,6 @@
 """Tokamak digital twin: MRE islands + 2D transport + control, one scan.
 
-TPU-native port of the reference's
+JAX-native port of the reference's
 ``control/tokamak_digital_twin.py:47-370``: a poloidal-cross-section
 twin where a Modified-Rutherford-Equation island model modulates a 2D
 diffusion-reaction temperature field, a current-drive action reshapes

@@ -1,6 +1,6 @@
 """Director oversight layer (coherence supervision of the controller).
 
-TPU-native port of the reference's experimental
+JAX-native port of the reference's experimental
 ``control/director_interface.py:48-307``: the Director does NOT drive
 the coils — it supervises the CONTROLLER, reviewing proposed strategy
 (target) updates against a stability flag and a neural-activity entropy

@@ -2,7 +2,7 @@
 
 Reference lane: ``control/disruption_predictor.py:92-200`` (transformer with
 a NumPy fallback path), ``disruption_risk_runtime.py`` (threshold/latch
-semantics), RESULTS.md "recall 1.00 / FPR 0.00 over 16 shots".  TPU-first
+semantics), RESULTS.md "recall 1.00 / FPR 0.00 over 16 shots".  accelerator-first
 design: sliding-window feature extraction is one vectorised gather, the
 classifier is the shared plain-JAX MLP backbone trained with the jitted Adam
 scan, and whole-shot risk traces evaluate as a single vmapped forward pass.

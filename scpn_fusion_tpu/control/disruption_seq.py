@@ -4,7 +4,7 @@ Reference parity: ``control/disruption_predictor.py:92-132`` defines a
 torch ``DisruptionTransformer`` — Linear(1->32) embedding, learned
 positional encoding, 2-layer TransformerEncoder (d_model=32, nhead=4,
 dim_feedforward=64), sigmoid classifier on the LAST encoder step.  This
-module is the TPU-first counterpart with two deliberate design deltas:
+module is the accelerator-first counterpart with two deliberate design deltas:
 
 * **Causal attention instead of a bidirectional encoder + last-step
   readout.**  The reference scores one fixed window per forward pass; a

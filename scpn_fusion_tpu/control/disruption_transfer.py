@@ -12,7 +12,7 @@ committed train/val/test split by shot number
 trace per shot, alarms on a calibrated threshold, and gates
 recall >= 0.60 / FPR <= 0.40 with Wilson CIs.
 
-This module is the TPU-first counterpart wired to the causal-transformer
+This module is the accelerator-first counterpart wired to the causal-transformer
 sequence predictor (:mod:`.disruption_seq`):
 
 * shots load through the fail-closed NPZ reader

@@ -1,6 +1,6 @@
 """Disturbance-rejection ladder: PID vs H-inf vs MPC vs SNN on one plant.
 
-TPU-native redesign of the reference's
+Compiled redesign of the reference's
 ``validation/benchmark_disturbance_rejection.py`` (PID / LQR-robust /
 DARE-MPC / SpikingControllerPool on the linearised vertical-stability
 plant, three scenarios, ISE + settling + overshoot metrics; results table

@@ -8,12 +8,12 @@ down-weighted rows for degraded sensors, stuck-actuator offset
 compensation, a minimum-rank controllability check, and a graceful
 shutdown command.
 
-TPU-native design (vs the reference's mutable sets/dicts + per-event
+JAX-native design (vs the reference's mutable sets/dicts + per-event
 NumPy pinv): the fault condition IS the state — a :class:`FaultState`
 pytree of arrays (coil mask, sensor weights, stuck values) — and every
 operation is a pure jittable function of it.  The allocation gain is a
 closed-form Tikhonov solve, so it can be rebuilt *inside* a ``lax.scan``
-step (coil counts are small; the n_c x n_c solve is trivial on-chip),
+step (coil counts are small; the n_c x n_c solve is trivial on-device),
 which lets :func:`run_fault_tolerant_shot` fuse the whole faulted
 closed-loop shot — fault schedule, FDI, reconfiguration, plant — into
 one compiled program, vmappable over fault scenarios.

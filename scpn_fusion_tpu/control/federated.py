@@ -1,6 +1,6 @@
 """Federated disruption-predictor training (FedAvg / FedProx + DP-SGD).
 
-TPU-native equivalent of the reference's cross-machine federation
+JAX-native equivalent of the reference's cross-machine federation
 (``control/federated_disruption.py:236-461`` ``MachineClient`` /
 ``FederatedServer`` with FedAvg aggregation and differential-privacy
 clipping :166): same contract — one disruption-risk MLP trained across

@@ -275,7 +275,6 @@ def run_shot_full(
     g_table = external_flux_table(grid, coils, mu0)
     p_c, ff_c = profile_coeffs_from_physics(cfg.physics, dtype)
     sol = cfg.solver
-    use_pallas = sol.use_pallas and jax.default_backend() == "tpu"
     tr = float(cfg.physics.plasma_current_target)
 
     t_r = DEFAULT_TARGET_R if target_r is None else float(target_r)
@@ -298,7 +297,7 @@ def run_shot_full(
             solver_method=sol.solver_method, max_iter=sol.max_iterations,
             h_mode=cfg.physics.profile_mode == "h-mode",
             inner_sweeps=sol.inner_sweeps, anderson_m=sol.anderson_depth,
-            mu0=mu0, use_gs_criterion=False, use_pallas=use_pallas)
+            mu0=mu0, use_gs_criterion=False)
 
     class Carry(NamedTuple):
         psi: jnp.ndarray

@@ -1,6 +1,6 @@
 """FPGA register-level export of the compiled SCPN controller.
 
-TPU-native counterpart of the reference's
+JAX-native counterpart of the reference's
 ``control/hil_fpga_export.py:27-180`` (register map + Verilog module
 header for HIL deployment).  Two upgrades over the reference's generic
 LIF slot map:

@@ -1,6 +1,6 @@
 """Closed-loop free-boundary shape tracking with the full GS plant in-loop.
 
-TPU-native redesign of the reference's free-boundary tracking family
+Compiled redesign of the reference's free-boundary tracking family
 (``control/free_boundary_tracking.py:46`` + the 8 ``_free_boundary_*``
 mixins and ``_free_boundary_safety_supervisor.py:28``):
 
@@ -233,13 +233,11 @@ class TrackingTrace(NamedTuple):
     axis_error: jnp.ndarray
 
 
-def _plant_solve(coils: CoilSet, cfg: ReactorConfig, grid: Grid,
-                 use_pallas: bool):
+def _plant_solve(coils: CoilSet, cfg: ReactorConfig, grid: Grid):
     res = _run_free_boundary(
         coils, cfg=cfg, grid=grid, max_outer_iter=5, tol=1e-4,
         optimize_shape=False, tikhonov_alpha=1e-4,
-        mu0_green=float(cfg.physics.vacuum_permeability),
-        use_pallas=use_pallas)
+        mu0_green=float(cfg.physics.vacuum_permeability))
     return res.psi
 
 
@@ -249,7 +247,6 @@ def identify_response(
     grid: Grid,
     base_obj: jnp.ndarray,
     perturbation: float,
-    use_pallas: bool,
 ) -> jnp.ndarray:
     """Coil-to-objective Jacobian J[obj, coil] from vmap-batched perturbed
     free-boundary solves (reference ``identify_response_matrix``, but all
@@ -259,15 +256,14 @@ def identify_response(
 
     def perturbed(col):
         c = coils._replace(currents=coils.currents + perturbation * col)
-        psi = _plant_solve(c, cfg, grid, use_pallas)
+        psi = _plant_solve(c, cfg, grid)
         return soft_objectives(psi, grid)
 
     objs = jax.vmap(perturbed)(eye)            # (n_coils, N_OBJ)
     return (objs - base_obj[None, :]).T / perturbation
 
 
-@partial(jax.jit, static_argnames=("cfg", "grid", "tcfg", "n_steps",
-                                   "use_pallas"))
+@partial(jax.jit, static_argnames=("cfg", "grid", "tcfg", "n_steps"))
 def _run_tracking_shot(
     coils: CoilSet,
     targets: jnp.ndarray,              # (N_OBJECTIVES,)
@@ -281,7 +277,6 @@ def _run_tracking_shot(
     grid: Grid,
     tcfg: TrackingConfig,
     n_steps: int,
-    use_pallas: bool,
 ) -> TrackingTrace:
     dtype = coils.currents.dtype
     sup_cfg = tcfg.supervisor
@@ -307,10 +302,10 @@ def _run_tracking_shot(
         b_probe_points=b_probe_points, b_probe_dirs=b_probe_dirs, mu0=mu0)
 
     # One-time local response identification around the initial currents.
-    psi0 = _plant_solve(coils, cfg, grid, use_pallas)
+    psi0 = _plant_solve(coils, cfg, grid)
     obj0 = soft_objectives(psi0, grid)
     jac = identify_response(coils, cfg, grid, obj0,
-                            tcfg.identification_perturbation, use_pallas)
+                            tcfg.identification_perturbation)
 
     bias0 = jnp.zeros((N_OBJECTIVES,), dtype)
     hist_len = tcfg.latency_steps + 2
@@ -327,7 +322,7 @@ def _run_tracking_shot(
 
     def step(state: TrackingState, key):
         c = coils._replace(currents=state.currents)
-        psi = _plant_solve(c, cfg, grid, use_pallas)
+        psi = _plant_solve(c, cfg, grid)
         obj_true = soft_objectives(psi, grid)
 
         # Synthetic magnetics -> coil-current reconstruction (estimator in
@@ -465,5 +460,4 @@ def run_tracking_shot(
         flux_points, b_probe_points, b_probe_dirs,
         jax.random.PRNGKey(seed),
         cfg=cfg, grid=grid, tcfg=tcfg, n_steps=int(n_steps),
-        use_pallas=False,
     )

@@ -1,6 +1,6 @@
 """Fueling mode + TORAX-style hybrid loop (SCPN-in-the-loop campaigns).
 
-TPU-native port of two reference control lanes (VERDICT r1 missing #10):
+JAX-native port of two reference control lanes (VERDICT r1 missing #10):
 
 * ``control/fueling_mode.py:97-217`` — ice-pellet density control: a PI
   path for tight convergence plus a GATED neuromorphic (SCPN) term that

@@ -1,6 +1,6 @@
 """Gain-scheduled PID bank with hysteretic regime detection.
 
-TPU-native equivalent of the reference scheduler
+JAX-native equivalent of the reference scheduler
 (``control/gain_scheduled_controller.py:22-148``): six discharge regimes
 (ramp-up, L-mode, L-H transition, H-mode, ramp-down, disruption
 mitigation), a hysteresis detector over a rolling history buffer, and a
@@ -22,7 +22,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-# Regime codes (static ints — the TPU-side regime is just an int32).
+# Regime codes (static ints — the device-side regime is just an int32).
 RAMP_UP = 0
 L_MODE_FLAT = 1
 LH_TRANSITION = 2

@@ -13,7 +13,7 @@ Two distinct measurements:
   jitted step (what an external HIL rig would see per tick: includes
   dispatch; the realistic control-room number),
 * ``measure_fused_throughput`` — amortised per-tick cost when N ticks run
-  fused in one ``lax.scan`` on device (the TPU-native deployment mode:
+  fused in one ``lax.scan`` on device (the JAX-native deployment mode:
   the >10 kHz equivalent lane runs the controller+plant fused, so
   dispatch cost is paid once per batch, not per tick).
 """
@@ -57,8 +57,8 @@ def measure_dispatch_latency(step_fn: Callable, args: tuple, *,
     round-trip an external HIL rig sees per tick.  ``pipelined=True``
     dispatches batches of calls and blocks once per batch — the amortised
     per-call cost when the consumer does not need each result before the
-    next command (the realistic mode over a remote device tunnel, where
-    synchronous ping-pong is RTT-bound).
+    next command (the realistic mode when the synchronous ping-pong is
+    bound by the host round trip).
     """
     fn = jax.jit(step_fn) if not hasattr(step_fn, "lower") else step_fn
     out = fn(*args)

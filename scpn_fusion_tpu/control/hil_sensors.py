@@ -1,6 +1,6 @@
 """ADC/DAC sensor–actuator boundary for the HIL harness.
 
-TPU-native counterpart of the reference's converter layer
+JAX-native counterpart of the reference's converter layer
 (``control/hil_sensors.py:25-127``): ADC quantisation + Gaussian
 measurement noise on the sensor side, range-clamped slew-rate-limited
 DAC output with a fail-safe hold on non-finite commands on the actuator

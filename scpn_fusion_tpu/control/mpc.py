@@ -1,6 +1,6 @@
 """Nonlinear model-predictive control with gradient-through-rollout planning.
 
-TPU-native redesign of the reference's two MPC lanes
+Compiled redesign of the reference's two MPC lanes
 (``control/nmpc_controller.py:50-200`` finite-difference linearised
 projected gradient; ``control/fusion_nmpc_jax.py:39-200`` JAX NMPC over a
 learned MLP dynamics surrogate): the horizon rollout is a ``lax.scan``, the

@@ -1,6 +1,6 @@
 """NEF-style spiking control channel (nengo-wrapper parity, nengo-free).
 
-TPU-native port of the reference's ``control/nengo_snn_wrapper.py:40-411``.
+JAX-native port of the reference's ``control/nengo_snn_wrapper.py:40-411``.
 The reference's own fallback path implements the Neural Engineering
 Framework directly (LIF populations with NEF gain/bias, least-squares
 decoders, low-pass synapses) and only optionally wraps nengo; this image

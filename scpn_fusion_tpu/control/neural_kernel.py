@@ -1,6 +1,6 @@
 """Neural equilibrium kernel: O(1) surrogate as the in-loop plant solver.
 
-TPU-native port of the reference's drop-in surrogate kernel
+JAX-native port of the reference's drop-in surrogate kernel
 (``core/neural_equilibrium_kernel.py:48-294`` ``NeuralEquilibriumKernel`` —
 "~1000x faster control loops by bypassing the Picard iteration" — and the
 HPC-bridge O(1) lane ``hpc_bridge.py:332-357``): the PCA+MLP equilibrium

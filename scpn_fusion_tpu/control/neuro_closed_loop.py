@@ -4,7 +4,7 @@ The reference's >10 kHz demo needed a Rust SNN kernel called per tick from
 Python (``scpn/controller.py:345`` + ``fusion-control/src/snn.rs``); here the
 compiled Petri-net controller tick and the plant update are fused into the
 same ``lax.scan``, so a whole multi-thousand-tick shot runs as one XLA
-program with zero host round-trips — the TPU answer to the reference's
+program with zero host round-trips — the compiled answer to the reference's
 ``control.closed_loop_step_us`` metric (BASELINE.md: 12-47 us P95 per step).
 
 Two plants are provided:

@@ -1,6 +1,6 @@
 """Push-pull spiking-population axis control, scan-fused on device.
 
-TPU-native re-design of the reference's neuro-cybernetic controller
+Compiled re-design of the reference's neuro-cybernetic controller
 (``control/neuro_cybernetic_controller.py``): ``SpikingControllerPool``
 (:53-194) steps two LIF populations (push/pull) per axis in a Python loop
 over neuron objects with a ``deque`` spike-rate window;

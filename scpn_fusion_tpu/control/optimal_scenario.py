@@ -127,7 +127,7 @@ def optimize_shot(k0: ShotKnobs, budget: FluxBudget,
 
     value_and_grad = jax.jit(jax.value_and_grad(loss_fn))
     opt = optax.adam(cfg.learning_rate)
-    # No explicit dtype: inherit the default (f32 on TPU, f64 with x64 on
+    # No explicit dtype: inherit the default (f32, or f64 with x64 on
     # CPU) so the knob vector matches the scenario constants' dtype instead
     # of silently truncating with a per-call warning (ADVICE.md r1).
     vec = jnp.asarray([k0.p_aux_flat_mw, k0.ne_flat_19, k0.ip_flat_ma])

@@ -5,7 +5,7 @@ Role-parity with the reference's rt-EFIT (``control/realtime_efit.py:112``
 Rogowski Ip, polynomial p'/FF' source basis, Tikhonov-regularised linear
 reconstruction) and its kinetic-EFIT cousin (``core/kinetic_efit.py``).
 
-TPU-first architecture: ALL geometry-dependent work happens once at build
+accelerator-first architecture: ALL geometry-dependent work happens once at build
 time —
 
 * basis current distributions J_k(R, Z) (p' modes ~ R * psi_norm^k and
@@ -15,7 +15,7 @@ time —
 * the regularised normal-equation solve operator
 
 — so one reconstruction at runtime is `coeffs = P @ residual_measurements`
-(a single small matmul) followed by `psi = coeffs @ basis_maps` (one MXU
+(a single small matmul) followed by `psi = coeffs @ basis_maps` (one
 contraction).  The whole `reconstruct` path jits, vmaps over measurement
 batches, and is differentiable through to the sensor values.
 """

@@ -1,6 +1,6 @@
 """Safe RL: shielded tokamak environment + Lagrangian PPO.
 
-TPU-native equivalent of the reference RL stack
+JAX-native equivalent of the reference RL stack
 (``control/shielded_tokamak_env.py:52-270``,
 ``control/safe_rl_controller.py:33-330``):
 

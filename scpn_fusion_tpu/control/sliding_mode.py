@@ -1,6 +1,6 @@
 """Super-twisting sliding-mode vertical stabiliser.
 
-TPU-native equivalent of the reference SMC module
+JAX-native equivalent of the reference SMC module
 (``control/sliding_mode_vertical.py:17-90``): second-order sliding mode
 u = -alpha sqrt(|s|) sign(s) + v,  dv/dt = -beta sign(s),  s = e + c de/dt,
 with actuator saturation, plus the Lyapunov gain certificate and the

@@ -1,6 +1,6 @@
 """SOC predator-prey sandpile + tabular soft-Q learning, one fused program.
 
-TPU-native re-design of the reference's advanced SOC learning runtime
+Compiled re-design of the reference's advanced SOC learning runtime
 (``control/advanced_soc_fusion_learning.py``): ``CoupledSandpileReactor``
 (:46-125) relaxes avalanches with a nested Python loop over active sites
 and couples toppling to a zonal-flow predator-prey variable whose shear

@@ -1,6 +1,6 @@
 """Stellarator control contracts: typed actuator/diagnostic/objective specs.
 
-TPU-native port of the reference's
+JAX-native port of the reference's
 ``control/stellarator_control_contracts.py:32-290``: fail-closed frozen
 dataclasses describing a stellarator control problem — magnetic
 configuration identity, actuator channels with hard clamps and slew

@@ -1,6 +1,6 @@
 """1000-shot stress-test campaign (vmapped randomized flight sims).
 
-TPU-native redesign of the reference's
+Compiled redesign of the reference's
 ``validation/stress_test_campaign.py`` (Step 2.1: PID across 1000
 identical-scenario episodes with injected sensor noise, ELM events, and
 ramp transients; headline result: 0% disruption rate, BASELINE.md).

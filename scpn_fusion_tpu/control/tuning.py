@@ -1,6 +1,6 @@
 """Automated controller gain tuning — batched cross-entropy search on device.
 
-TPU-native re-design of the reference's Optuna-based tuner
+Compiled re-design of the reference's Optuna-based tuner
 (``control/controller_tuning.py:184-238`` ``tune_pid``, ``:240-264``
 ``tune_hinf``): where the reference runs sequential Optuna trials, each one a
 host-Python Gymnasium rollout, here a whole GENERATION of candidates is one

@@ -1,6 +1,6 @@
 """Realtime digital-twin ingest + SNN scenario planning — one device program.
 
-TPU-native re-design of the reference's realtime twin hook
+Compiled re-design of the reference's realtime twin hook
 (``control/digital_twin_ingest.py``): ``RealtimeTwinHook`` there ingests
 ``TelemetryPacket`` objects one at a time into a Python list ring buffer
 (:156-170), replans every ``plan_every`` packets with a host loop that calls

@@ -1,6 +1,6 @@
 """Vessel eddy-current circuits + RZIP rigid-plasma vertical response.
 
-TPU-native equivalent of the reference's vessel/RZIP stack
+JAX-native equivalent of the reference's vessel/RZIP stack
 (``core/vessel_model.py:32-160``, ``control/rzip_model.py:27-380``):
 
 * Vessel: toroidal filaments as a struct-of-arrays circuit
@@ -17,7 +17,7 @@ TPU-native equivalent of the reference's vessel/RZIP stack
   (``control/hinf.solve_care_ode``) instead of SciPy.
 
 Growth rates / closed-loop eigenvalues use host NumPy ``eigvals`` on the
-tiny (n+2) matrices — nonsymmetric eig is unsupported on the TPU backend
+tiny (n+2) matrices — nonsymmetric eig is unsupported on accelerator backends
 and this is offline analysis, not a hot path.
 """
 

@@ -1,6 +1,6 @@
 """Typed, fail-closed reactor configuration.
 
-TPU-native equivalent of the reference's pydantic schema
+JAX-native equivalent of the reference's pydantic schema
 (``core/config_schema.py:31-102``) and JSON config loading
 (``fusion_kernel.py:135-156``).  Instead of pydantic models we use frozen
 dataclasses: they are hashable, so a full ``ReactorConfig`` can be passed as a
@@ -135,7 +135,6 @@ class SolverParams:
     mg_pre_smooth: int = 3
     mg_post_smooth: int = 3
     mg_min_grid: int = 5
-    use_pallas: bool = True
 
     def __post_init__(self) -> None:
         if self.max_iterations <= 0:

@@ -1,9 +1,8 @@
 """Precision policy helpers.
 
-The framework's dtype contract (SURVEY.md §7 "FP64 on TPU" hard part):
-f64 is the verification precision on CPU lanes (x64 enabled by the test
-harness and the validation campaigns), f32/bf16 the production TPU
-precision.  Code must never *silently* truncate — an explicit
+The framework's dtype contract (SURVEY.md §7 precision hard part):
+f64 is the verification precision (x64 enabled by the test harness and
+the validation campaigns), f32/bf16 the production device precision.  Code must never *silently* truncate — an explicit
 ``jnp.float64`` with x64 disabled downcasts with a per-call UserWarning
 (the BENCH_r01 warning spam, VERDICT.md r1 weak #3).  Use
 ``default_float()`` wherever "the widest float available here" is meant.

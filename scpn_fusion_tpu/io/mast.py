@@ -1,6 +1,6 @@
 """MAST public-archive ingestor (FAIR MAST role, offline-honest).
 
-TPU-native analogue of the reference's ``io/mast_ingestor.py:61-179``:
+JAX-native analogue of the reference's ``io/mast_ingestor.py:61-179``:
 streaming access to the UKAEA FAIR MAST dataset via the S3/Zarr stack,
 with a local on-disk cache.  This image has zero egress and no
 fsspec/zarr stack, so the lanes are, in priority order:

@@ -1,6 +1,6 @@
 """Strict OMAS free-boundary input extraction (fail-closed contract).
 
-TPU-native port of the reference's
+JAX-native port of the reference's
 ``io/omas_free_boundary_inputs.py:42-598`` semantics: a bounded adapter
 that reads a dotted-path ODS-like mapping into typed PF-coil / magnetic-
 probe / flux-loop inputs for the predictive free-boundary solver.  It

@@ -13,7 +13,7 @@ JAX port of the reference's forward-model suite
 * magnetics:       psi and (B_R, B_Z) sampled at probe points (the synthetic
                    sensor lane, ``diagnostics/synthetic_sensors.py:48-116``)
 
-TPU-first: chords are (n_chords, 2, 2) arrays and every channel family is a
+accelerator-first: chords are (n_chords, 2, 2) arrays and every channel family is a
 single vmapped computation — no per-chord host loops; all models are
 differentiable, so synthetic diagnostics can close inverse problems
 (tomography, current reconstruction) by gradient descent.

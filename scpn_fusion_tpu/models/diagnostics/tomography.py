@@ -1,6 +1,6 @@
 """Tomographic inversion of line-integrated chord signals.
 
-TPU-native equivalent of the reference tomography stack
+JAX-native equivalent of the reference tomography stack
 (``diagnostics/tomography.py:29-205`` + its Rust ``PyTomography`` twin):
 reconstruct a 2D emissivity map on an ``res x res`` pixel grid from
 bolometer chord brightness by solving the Tikhonov-regularised
@@ -9,7 +9,7 @@ non-negative inverse problem  min ||A x - b||^2 + lam ||x||^2, x >= 0.
 Geometry assembly — the reference loops 100 sample points per chord in
 Python (and again in Rust); here the whole (n_chords, n_samples) sample
 cloud is binned at once and accumulated into the geometry matrix with a
-one-hot contraction (an MXU matmul, no scatters).  ``floor`` binning keeps
+one-hot contraction (one matmul, no scatters).  ``floor`` binning keeps
 out-of-grid samples excluded rather than aliased, matching the reference's
 Rust-parity behaviour.
 

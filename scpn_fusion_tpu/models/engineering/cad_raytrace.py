@@ -1,6 +1,6 @@
 """CAD surface-loading raytrace (STL -> line-of-sight heat map).
 
-TPU-native port of the reference's ``engineering/cad_raytrace.py:26-270``:
+JAX-native port of the reference's ``engineering/cad_raytrace.py:26-270``:
 ASCII/binary STL parsing, mesh validation, and reduced line-of-sight
 loading ``P cos(theta) / (4 pi d^2)`` per triangle with optional
 self-shadowing occlusion.

@@ -1,6 +1,6 @@
 """Coolant-loop thermal hydraulics: friction factor + pumping power.
 
-TPU-native port of the reference's lumped loop model
+JAX-native port of the reference's lumped loop model
 (``engineering/thermal_hydraulics.py:38-118``: Churchill all-regime Darcy
 friction factor + Darcy-Weisbach pressure drop + pump power for
 water/helium/LiPb loops).  Pure jnp functions — design scans ``vmap`` over

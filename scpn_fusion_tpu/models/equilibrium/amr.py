@@ -5,7 +5,7 @@ extracting a refined sub-grid around the X-point, re-solving GS locally
 with coarse-interpolated Dirichlet boundaries, and returning a sharpened
 X-point position; Rust twin ``fusion-math/src/amr.rs``).
 
-TPU-first design: the patch is a STATIC-shape window (refine factor x
+accelerator-first design: the patch is a STATIC-shape window (refine factor x
 window cells), extracted with ``lax.dynamic_slice`` around the X-point
 index, bilinearly prolonged, relaxed with the same vectorised red-black
 SOR kernel as the global solve, and the refined saddle is localised by a

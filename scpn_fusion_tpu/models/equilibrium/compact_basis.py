@@ -1,6 +1,6 @@
 """Compact differentiable bases for equilibrium exchange (psi + profiles).
 
-TPU-native equivalent of the reference's fixed-basis primitives:
+JAX-native equivalent of the reference's fixed-basis primitives:
 
 * ``core/jax_chebyshev_psi.py`` — tensor-product Chebyshev expansion of the
   poloidal flux: a solved ``(NZ, NR)`` psi field compressed to a small
@@ -81,7 +81,7 @@ class FixedBasis:
 
 
 def jax_triangular_solve(r: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Upper-triangular solve via lax triangular_solve (MXU-friendly)."""
+    """Upper-triangular solve via lax triangular_solve (matmul-friendly)."""
     from jax import lax
 
     return lax.linalg.triangular_solve(

@@ -52,7 +52,7 @@ def _sampled_profile(psi_n: jnp.ndarray, table: jnp.ndarray) -> jnp.ndarray:
     return table[i0] * (1.0 - frac) + table[i0 + 1] * frac
 
 
-@partial(jax.jit, static_argnames=("grid", "max_iter", "n_inner_cycles", "use_pallas"))
+@partial(jax.jit, static_argnames=("grid", "max_iter", "n_inner_cycles"))
 def _solve_eqdsk_impl(
     grid: Grid,
     psi_ref: jnp.ndarray,
@@ -65,7 +65,6 @@ def _solve_eqdsk_impl(
     *,
     max_iter: int,
     n_inner_cycles: int,
-    use_pallas: bool,
 ) -> EqdskSolveResult:
     r_1d = grid.R
     rr = grid.RR
@@ -101,7 +100,7 @@ def _solve_eqdsk_impl(
         psi_new = c.psi
         for _ in range(n_inner_cycles):
             psi_new = _vcycle_impl(psi_new, src, r_1d, d_r, d_z,
-                                   1.0, 3, 3, 5, 50, use_pallas)
+                                   1.0, 3, 3, 5, 50)
         psi_new = apply_dirichlet(psi_new, psi_bc)
         diff = jnp.mean(jnp.abs(psi_new - c.psi))
         psi_next = (1.0 - alpha) * c.psi + alpha * psi_new
@@ -142,7 +141,7 @@ def solve_from_geqdsk(
 ) -> EqdskSolveResult:
     """Reconstruct the equilibrium of a G-EQDSK file on its own grid.
 
-    ``dtype`` defaults to f64 where enabled (CPU x64) and f32 on TPU.
+    ``dtype`` defaults to f64 where x64 is enabled and f32 otherwise.
     """
     if dtype is None:
         dtype = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
@@ -156,7 +155,6 @@ def solve_from_geqdsk(
     span = float(eq.psirz.max() - eq.psirz.min())
     if tol is None:
         tol = 1e-5 * span
-    use_pallas = jax.default_backend() == "tpu"
     return _solve_eqdsk_impl(
         grid, psi_ref,
         jnp.asarray(eq.pprime, dtype),
@@ -167,5 +165,4 @@ def solve_from_geqdsk(
         jnp.asarray(tol, dtype),
         max_iter=max_iter,
         n_inner_cycles=n_inner_cycles,
-        use_pallas=use_pallas,
     )

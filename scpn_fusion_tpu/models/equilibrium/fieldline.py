@@ -5,7 +5,7 @@ Role-parity with the reference's field-line lane (``core/fieldline_3d.py``
 RK4 line following with Poincaré sections and island detection,
 ``core/geometry_3d.py``; Rust twin in ``fusion-core``).
 
-TPU-native design: the tracer integrates ALL seed lines at once — the
+JAX-native design: the tracer integrates ALL seed lines at once — the
 state is a (n_lines, 3) array advanced by one ``lax.scan`` over toroidal
 steps, so a 10^3-seed Poincaré scan is one compiled program.  The field
 can be an axisymmetric equilibrium (psi interpolated bilinearly) plus an

@@ -1,6 +1,6 @@
 """Fixed-boundary Grad-Shafranov equilibrium: the compiled Picard solver.
 
-This is the TPU-native redesign of the reference's host-driven Picard loop
+This is the compiled redesign of the reference's host-driven Picard loop
 (``fusion_kernel_newton_solver.py:390-615``): the *entire* nonlinear solve —
 topology analysis, profile/source update, elliptic sweeps (SOR / Jacobi /
 multigrid V-cycle), under-relaxation, Anderson mixing, divergence guard with
@@ -46,6 +46,12 @@ from scpn_fusion_tpu.ops.stencil import (
     jacobi_sweeps,
     sor_step,
 )
+
+# Precision of the Anderson contractions.  At the default precision an H100
+# may round float32 operands to TF32 (10-bit mantissa): forced TF32 moved
+# the float32 mix of a 4 x 257^2 history 1.7e-6 from float64, against
+# 1.5e-7 in full float32.  Pinned, the default precision cannot reach them.
+CONTRACT_PRECISION = jax.lax.Precision.HIGHEST
 
 
 class EquilibriumResult(NamedTuple):
@@ -118,17 +124,19 @@ def _anderson_mix(
 
     rhs = f_masked[-1]
     # ``gram_in_f32`` (mixed-precision path): the Gram build + LU solve run
-    # in f32 — TPU XLA's LuDecomposition has no f64 lowering, and the mixing
-    # WEIGHTS only steer the combination (any weight error is absorbed by
-    # the fixed-point iteration); the combination itself stays in the
-    # buffers' own (f64) dtype below, which is what preserves precision.
+    # in f32.  The mixing WEIGHTS only steer the combination (any weight
+    # error is absorbed by the fixed-point iteration); the combination
+    # itself stays in the buffers' own (f64) dtype below, which is what
+    # preserves precision.
     cdt = jnp.float32 if gram_in_f32 else f_buf.dtype
     d_f_c = d_f.astype(cdt)
-    gram = jnp.einsum("mij,nij->mn", d_f_c, d_f_c)
+    gram = jnp.einsum("mij,nij->mn", d_f_c, d_f_c,
+                      precision=CONTRACT_PRECISION)
     scale = jnp.trace(gram) / (m - 1)
     gram = gram + (1e-10 + 1e-8 * scale) * jnp.eye(m - 1, dtype=cdt)
     gamma = jnp.linalg.solve(
-        gram, jnp.einsum("mij,ij->m", d_f_c, rhs.astype(cdt))
+        gram, jnp.einsum("mij,ij->m", d_f_c, rhs.astype(cdt),
+                         precision=CONTRACT_PRECISION)
     ).astype(f_buf.dtype)
     # Extrapolation safeguard: bound ||gamma|| (standard safeguarded-AA).
     g_norm = jnp.linalg.norm(gamma)
@@ -149,7 +157,8 @@ def _anderson_mix(
     safe = jnp.abs(alpha_sum) >= 1e-12
     alpha = jnp.where(safe, alpha / jnp.where(safe, alpha_sum, 1.0), 0.0)
 
-    mixed = jnp.einsum("m,mij->ij", alpha, psi_buf)
+    mixed = jnp.einsum("m,mij->ij", alpha, psi_buf,
+                       precision=CONTRACT_PRECISION)
     # Fall back to the newest iterate if the mix was degenerate.
     return jnp.where(safe, mixed, psi_buf[-1])
 
@@ -173,7 +182,6 @@ def solve_fixed_boundary_impl(
     anderson_m: int,
     mu0: float,
     use_gs_criterion: bool,
-    use_pallas: bool = False,
     elliptic_fn=None,
     skip_seed: bool = False,
     anderson_gram_f32: bool = False,
@@ -223,44 +231,15 @@ def solve_fixed_boundary_impl(
         elif solver_method in ("multigrid", "anderson_mg"):
             out = _vcycle_impl(psi_in, source, r_1d, d_r, d_z,
                                1.0, mg_pre_smooth, mg_post_smooth,
-                               mg_min_grid, 50, use_pallas)
+                               mg_min_grid, 50)
         else:  # "sor" | "anderson"
-            # Same whole-grid VMEM budget as picard_source below.
-            if use_pallas and (psi_in.size * psi_in.dtype.itemsize * 3
-                               <= 12 * 2**20):
-                from scpn_fusion_tpu.ops.pallas_stencil import sor_sweeps_pallas
-                out = sor_sweeps_pallas(psi_in, source, r_1d, d_r, d_z,
-                                        omega, inner_sweeps, interpret=False)
-            else:
-                out = psi_in
-                for _ in range(inner_sweeps):
-                    out = sor_step(out, source, r_1d, d_r, d_z, omega)
+            out = psi_in
+            for _ in range(inner_sweeps):
+                out = sor_step(out, source, r_1d, d_r, d_z, omega)
         return apply_dirichlet(out, psi_bc)
 
-    # Loop-invariant divertor mask for the fused topology+source kernel
-    # (computed from the true ZZ grid so the X-point search region is
-    # ulp-identical to ``analyze_topology``'s).
-    divertor_mask = (zz < (grid.Z_min * 0.5)).astype(dtype)
-
     def picard_source(psi_k: jnp.ndarray) -> jnp.ndarray:
-        """Topology + Ip-renormalised current source for one iteration.
-
-        On the Pallas path the whole chain (axis max, divertor X-point
-        search, profiles, Ip normalisation) runs as ONE VMEM-resident
-        kernel (``ops/pallas_source.py``) — as separate XLA ops it was
-        ~0.23 ms of the ~0.55 ms outer iteration at 513².
-        """
-        # Whole-grid VMEM budget: the fused kernel holds psi + mask + src
-        # (3 arrays) resident; above ~12 MB (1025²+ f32) fall back to the
-        # XLA chain — at that size the ops are bandwidth-bound anyway.
-        fits_vmem = (psi_k.size * psi_k.dtype.itemsize * 3) <= 12 * 2**20
-        if use_pallas and fits_vmem:
-            from scpn_fusion_tpu.ops.pallas_source import (
-                fused_topology_source,
-            )
-            return fused_topology_source(
-                psi_k, r_1d, divertor_mask, p_coeffs, ff_coeffs, i_target,
-                d_r=d_r, d_z=d_z, mu0=mu0, h_mode=h_mode, interpret=False)
+        """Topology + Ip-renormalised current source for one iteration."""
         topo = analyze_topology(psi_k, zz, d_r, d_z, grid.Z_min)
         j_phi = plasma_current_density(
             psi_k, topo.psi_axis, topo.psi_boundary, rr,
@@ -403,7 +382,7 @@ _solve_fixed_boundary = partial(
     jax.jit,
     static_argnames=("grid", "solver_method", "max_iter", "h_mode",
                      "inner_sweeps", "anderson_m", "mu0", "use_gs_criterion",
-                     "use_pallas", "elliptic_fn", "skip_seed",
+                     "elliptic_fn", "skip_seed",
                      "anderson_gram_f32", "mg_pre_smooth", "mg_post_smooth",
                      "mg_min_grid"),
 )(solve_fixed_boundary_impl)
@@ -496,8 +475,6 @@ def solve_equilibrium(
         anderson_m=sol.anderson_depth,
         mu0=mu0,
         use_gs_criterion=sol.gs_residual_threshold > 0,
-        use_pallas=(sol.use_pallas and jax.default_backend() == "tpu"
-                    and jnp.dtype(dtype) == jnp.float32),
         skip_seed=skip_seed,
         mg_pre_smooth=sol.mg_pre_smooth,
         mg_post_smooth=sol.mg_post_smooth,
@@ -529,6 +506,10 @@ def solve_equilibrium_fmg(
     solution, ``jax_predictive_forward_compiled.py``; this cascade needs
     no history and accelerates cold solves.)
 
+    Coarse levels converge on the update criterion alone (their only job
+    is the warm start); a ``gs_residual_threshold`` gates the finest level,
+    as in ``mixed_precision.solve_equilibrium_mixed_fmg``.
+
     Returns ``(final_result, cascade_info)`` where cascade_info lists
     per-level grid size and outer iterations.
     """
@@ -552,7 +533,9 @@ def solve_equilibrium_fmg(
             solver=dataclasses.replace(
                 cfg.solver,
                 convergence_threshold=(cfg.solver.convergence_threshold
-                                       if n == nr else coarse_tol)))
+                                       if n == nr else coarse_tol),
+                gs_residual_threshold=(cfg.solver.gs_residual_threshold
+                                       if n == nr else 0.0)))
         # Warm levels need the EXACT fine-grid vacuum Dirichlet ring —
         # preserve_initial_state alone would take the boundary from the
         # prolonged field (O(h_coarse^2) boundary error that the fine

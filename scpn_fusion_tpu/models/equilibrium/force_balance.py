@@ -1,6 +1,6 @@
 """Radial force balance: PF-coil currents for static equilibrium at R.
 
-TPU-native redesign of the reference's ``core/force_balance.py:19-175``
+Compiled redesign of the reference's ``core/force_balance.py:19-175``
 (``ForceBalanceSolver``): find the control-coil currents that zero the
 net radial force on the plasma at the target radius.
 

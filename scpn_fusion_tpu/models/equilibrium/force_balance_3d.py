@@ -1,6 +1,6 @@
 """Reduced 3D equilibrium: Fourier flux-coordinate map + force balance.
 
-TPU-native redesign of the reference's ``core/equilibrium_3d.py``:
+Compiled redesign of the reference's ``core/equilibrium_3d.py``:
 
 * ``Geometry3D`` — the VMEC-like Fourier-parameterised map
   (rho, theta, phi) -> (R, Z, phi) with elongation / triangularity /

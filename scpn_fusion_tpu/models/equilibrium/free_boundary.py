@@ -1,6 +1,6 @@
 """Free-boundary Grad-Shafranov solve with coil-driven boundary flux.
 
-TPU-native redesign of the reference's free-boundary machinery
+Compiled redesign of the reference's free-boundary machinery
 (``fusion_kernel_free_boundary.py:623-739``): the outer loop — external coil
 flux on the boundary, inner Picard GS solve, optional Tikhonov-bounded
 coil-current re-optimisation against shape-control points — runs entirely
@@ -147,7 +147,7 @@ def _dummy_eq(grid: Grid, dtype, max_iter: int) -> EquilibriumResult:
 @partial(
     jax.jit,
     static_argnames=("cfg", "grid", "max_outer_iter", "tol", "optimize_shape",
-                     "tikhonov_alpha", "mu0_green", "use_pallas",
+                     "tikhonov_alpha", "mu0_green",
                      "use_wall_response", "anderson_gram_f32",
                      "mixed_n_refine", "elliptic_fn"),
 )
@@ -161,7 +161,6 @@ def _run_free_boundary(
     optimize_shape: bool,
     tikhonov_alpha: float,
     mu0_green: float,
-    use_pallas: bool,
     anderson_gram_f32: bool = False,
     use_wall_response: bool = False,
     mixed_n_refine: int = 0,
@@ -178,7 +177,7 @@ def _run_free_boundary(
     elliptic_inj = elliptic_fn
     # Mixed-precision inner elliptic (f64 master iterate, f32 MG defect
     # correction — models/equilibrium/mixed_precision.py): the V-cycle is
-    # ~90% of the inner solve's cost and runs in f32 (Pallas-eligible),
+    # ~90% of the inner solve's cost and runs in f32,
     # while the outer criterion, Green's boundary, topology and source stay
     # f64 — same convergence semantics as the full-f64 lane at near-f32
     # device cost.
@@ -187,7 +186,7 @@ def _run_free_boundary(
             make_refinement_elliptic,
         )
         elliptic_inj = make_refinement_elliptic(
-            grid, n_refine=mixed_n_refine, use_pallas=use_pallas)
+            grid, n_refine=mixed_n_refine)
 
     wall = None
     if use_wall_response:
@@ -237,9 +236,6 @@ def _run_free_boundary(
             anderson_m=sol.anderson_depth,
             mu0=mu0_cfg,
             use_gs_criterion=False,
-            # In mixed mode the Pallas flag belongs to the injected f32
-            # V-cycle only; the f64 topology/source path must stay on XLA.
-            use_pallas=use_pallas and elliptic_inj is None,
             elliptic_fn=elliptic_inj,
             anderson_gram_f32=anderson_gram_f32,
         )
@@ -337,10 +333,6 @@ def solve_free_boundary(
     if optimize_shape and coils.target_flux_points is None:
         raise ValueError("optimize_shape requires CoilSet.target_flux_points")
 
-    # Pallas kernels are f32-only (TPU VMEM tiling): eligible for pure-f32
-    # runs, and in mixed mode for the injected f32 V-cycle; the full-f64
-    # path falls back to the XLA smoother.
-    pallas_ok = cfg.solver.use_pallas and jax.default_backend() == "tpu"
     return _run_free_boundary(
         coils,
         cfg=cfg,
@@ -350,8 +342,6 @@ def solve_free_boundary(
         optimize_shape=bool(optimize_shape),
         tikhonov_alpha=float(tikhonov_alpha),
         mu0_green=float(mu0_green),
-        use_pallas=pallas_ok and (jnp.dtype(dtype) == jnp.float32
-                                  or mixed_n_refine > 0),
         use_wall_response=bool(use_wall_response),
         anderson_gram_f32=bool(anderson_gram_f32),
         mixed_n_refine=int(mixed_n_refine),

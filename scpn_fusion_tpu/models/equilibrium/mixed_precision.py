@@ -8,23 +8,22 @@ f32 cannot do — the second difference of f32 rounding noise alone is
 residual stalls near 1e-3 regardless of how accurate the solve is
 (``precision_budget.json``, VERDICT r3 weak #1).
 
-TPU-native design (classic iterative refinement, MG as the inner solver):
+Design (classic iterative refinement, MG as the inner solver):
 
 * the master flux iterate, topology analysis, profile source, and the
-  GS-residual convergence gate all run in **f64** (XLA emulates f64 on the
-  VPU; these are elementwise/stencil ops, a few % of a V-cycle's cost);
+  GS-residual convergence gate all run in **f64** (elementwise/stencil
+  ops, a few % of a V-cycle's cost);
 * the elliptic inner solve is **defect correction**: per refinement round,
   the f64 defect ``r = S - L[psi]`` is cast to f32 and ONE f32 multigrid
-  V-cycle (optionally the Pallas VMEM-resident smoother) solves the error
+  V-cycle solves the error
   equation ``L e = r`` from zero; the correction is added back in f64.
   The f32 V-cycle sees a zero-boundary error equation whose solution is
   small, so f32 roundoff enters only at the *correction* scale — the
   iterate's accuracy is limited by f64 arithmetic, not f32;
 * Anderson mixing runs over **f64 buffers** (the combination must not
   truncate the iterate) with the Gram build + LU in **f32**
-  (``_anderson_mix(gram_in_f32=True)``): TPU XLA has no f64 LU lowering,
-  and weight precision only perturbs the mixing direction, which the
-  fixed-point iteration absorbs.
+  (``_anderson_mix(gram_in_f32=True)``): weight precision only perturbs
+  the mixing direction, which the fixed-point iteration absorbs.
 
 The result: GS-residual-gated convergence at 513^2 at near-f32 device
 cost (the f64 ops are O(10) elementwise passes per outer iteration vs the
@@ -63,7 +62,6 @@ def make_refinement_elliptic(
     grid: Grid,
     *,
     n_refine: int = 2,
-    use_pallas: bool = False,
 ):
     """Build the defect-correction elliptic step for ``elliptic_fn`` injection.
 
@@ -79,7 +77,7 @@ def make_refinement_elliptic(
             defect64 = gs_residual(p64, source64, r64, d_r, d_z)
             e32 = _vcycle_impl(
                 jnp.zeros(p64.shape, jnp.float32), defect64.astype(jnp.float32),
-                r32, d_r, d_z, 1.0, 3, 3, 5, 50, use_pallas)
+                r32, d_r, d_z, 1.0, 3, 3, 5, 50)
             return p64 + e32.astype(jnp.float64), None
 
         out, _ = jax.lax.scan(round_, psi64, None, length=n_refine)
@@ -94,7 +92,6 @@ def solve_equilibrium_mixed(
     psi0: jnp.ndarray | None = None,
     i_target=None,
     n_refine: int = 2,
-    use_pallas: bool | None = None,
     skip_seed: bool = False,
 ) -> EquilibriumResult:
     """Fixed-boundary GS solve with an f64 master iterate and f32 MG inner.
@@ -102,12 +99,10 @@ def solve_equilibrium_mixed(
     Converges on BOTH criteria: mean-|dpsi| < ``convergence_threshold`` AND
     f64 GS-residual RMS < ``gs_residual_threshold`` (set it > 0 in
     ``cfg.solver``; this path exists precisely to make that gate reachable
-    at large grids on TPU).
+    at large grids).
     """
     require_x64()
     grid = Grid.from_config(cfg, dtype=jnp.float64)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
 
     psi_bc = vacuum_psi_from_config(grid, cfg).astype(jnp.float64)
     psi_init = jnp.asarray(psi0, jnp.float64) if psi0 is not None else psi_bc
@@ -116,7 +111,7 @@ def solve_equilibrium_mixed(
     sol = cfg.solver
 
     elliptic = make_refinement_elliptic(
-        grid, n_refine=n_refine, use_pallas=use_pallas)
+        grid, n_refine=n_refine)
 
     return _solve_fixed_boundary(
         grid, psi_init, psi_bc,
@@ -134,7 +129,6 @@ def solve_equilibrium_mixed(
         anderson_m=sol.anderson_depth,
         mu0=float(cfg.physics.vacuum_permeability),
         use_gs_criterion=sol.gs_residual_threshold > 0,
-        use_pallas=False,              # inner V-cycle pallas flag lives in elliptic
         elliptic_fn=elliptic,
         skip_seed=skip_seed,
         anderson_gram_f32=True,

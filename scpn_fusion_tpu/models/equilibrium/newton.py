@@ -1,6 +1,6 @@
 """Newton-Krylov Grad-Shafranov solver (matrix-free, exact JVP).
 
-TPU-native redesign of the reference's Newton dispatch
+Compiled redesign of the reference's Newton dispatch
 (``fusion_kernel_newton_solver.py:104-374`` + ``_solver_runtime.py:206-315``):
 Picard warm-up, then Newton iterations solving  J(psi) delta = -F(psi)  with
 
@@ -100,7 +100,7 @@ def _solve_newton_impl(
     def precond(v):
         # One MG V-cycle approximating (Delta*)^{-1} v (zero Dirichlet).
         return _vcycle_impl(jnp.zeros_like(v), v, r_1d, d_r, d_z,
-                            1.0, 2, 2, 5, 30, False)
+                            1.0, 2, 2, 5, 30)
 
     # ── Picard warm-up: seed + a few relaxed fixed-point steps ──
     r_center = 0.5 * (grid.R_min + grid.R_max)

@@ -1,6 +1,6 @@
 """Real-shot strict-accuracy reconstruction: measured-external-source GS lane.
 
-TPU-native port of the reference's real-data validation methodology
+JAX-native port of the reference's real-data validation methodology
 (``validation/validate_real_diiid_145419.py:253-389`` full_domain_reproduction,
 artifact ``artifacts/real_diiid_145419/real_145419_validation.json``:
 deep RMS 1.91 % full-domain, 0.070 % shell-pinned):
@@ -24,7 +24,7 @@ deep RMS 1.91 % full-domain, 0.070 % shell-pinned):
    (reference :311-316).
 4. **Anderson(m) outer acceleration** around the inner Dirichlet elliptic
    solve (reference :360-377) — here the inner solve is geometric multigrid
-   V-cycles (TPU-native; the reference uses a sparse LU on host).
+   V-cycles (JAX-native; the reference uses a sparse LU on host).
 5. **Shell pinning** (``model_psin_max < 1``) — the attribution diagnostic:
    the model source is applied only where ``psi_N < model_psin_max`` and the
    measured ``Delta* psi`` is kept in the remaining pedestal shell
@@ -298,7 +298,7 @@ def _reconstruct_impl(
         src = jnp.where(model_mask, src_model * scale, external)
         out = psi
         for _ in range(n_inner):
-            out = _vcycle_impl(out, src, r_1d, d_r, d_z, 1.0, 3, 3, 5, 50, False)
+            out = _vcycle_impl(out, src, r_1d, d_r, d_z, 1.0, 3, 3, 5, 50)
         return apply_dirichlet(out, psi_ring).reshape(-1)
 
     m = anderson_m

@@ -4,7 +4,7 @@ Covers the reference's ``core/stability_analyzer.py`` ``StabilityAnalyzer``
 (vacuum-field interpolation + decay index ``:37-77``, Shafranov hoop +
 Lorentz ring forces ``calculate_forces:79-124``, stiffness-matrix
 eigenvalue analysis ``analyze_stability:126-185``, and the force
-landscape ``plot_stability_landscape:243``) with a TPU-native design:
+landscape ``plot_stability_landscape:243``) with a JAX-native design:
 
 * field interpolation is differentiable bilinear sampling
   (``map_coordinates`` order=1) of the grid-difference gradients, so the
@@ -14,7 +14,7 @@ landscape ``plot_stability_landscape:243``) with a TPU-native design:
   terms ``K_RZ``, ``K_ZR`` come out for free (the reference zeroes
   them, ``:158-159``);
 * the 2x2 eigenvalues are closed-form (trace/determinant), which stays
-  jittable on TPU where general nonsymmetric ``eig`` is host-only;
+  jittable on accelerators where general nonsymmetric ``eig`` is host-only;
 * the stability landscape is one ``vmap`` over query points returning
   arrays (rendering belongs to the dashboard generator, not here).
 

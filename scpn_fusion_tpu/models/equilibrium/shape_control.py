@@ -1,6 +1,6 @@
 """Free-boundary shape-control machinery: response matrices + targets.
 
-TPU-native port of the reference's shape-control depth
+JAX-native port of the reference's shape-control depth
 (VERDICT.md r1 missing #3):
 
 * magnetic-probe response matrix — flux-loop rows (direct Green's-function
@@ -20,7 +20,7 @@ TPU-native port of the reference's shape-control depth
   contribution on the computational wall as ONE matmul per Picard step.
 
 Everything here is pure-JAX: response assembly is ``vmap`` over
-coils/points (batched elliptic-integral evaluation feeding matmuls — MXU
+coils/points (batched elliptic-integral evaluation feeding matmuls —
 work, not host loops).
 """
 

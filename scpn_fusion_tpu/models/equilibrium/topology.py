@@ -52,10 +52,8 @@ def find_x_point(
     empty the global psi minimum is returned (same fallback semantics).
     """
     # Central-difference gradient (interior), one-sided at edges.
-    # sqrt(a^2+b^2) rather than hypot: bit-identical to the fused Pallas
-    # source kernel (`ops/pallas_source._fused_source_kernel`) so both
-    # paths select the SAME X-point site — hypot's extra ulp of rounding
-    # can flip near-degenerate |grad psi| ties between sites with very
+    # sqrt(a^2+b^2) rather than hypot: hypot's extra ulp of rounding can
+    # flip near-degenerate |grad psi| ties between sites with very
     # different flux, which destabilises the Picard loop (seen as a
     # 1e-4-scale source noise floor at 129^2 f32).  No overflow concern:
     # gradients here are O(1e3) at most.

@@ -4,7 +4,7 @@ JAX port of the reference's reduced-order VMEC-style solver
 (``core/vmec_lite.py:33-280``; Hirshman & Whitson 1983 at reduced order):
 (R_mn, Z_mn) Fourier coefficients on a radial s-grid relax under radial
 curvature tension with a q^2 dp/ds Shafranov-shift drive on the (0,0) mode,
-fixed boundary, adaptive residual-monotone steps.  TPU-first: the per-mode
+fixed boundary, adaptive residual-monotone steps.  accelerator-first: the per-mode
 Python loops become whole-array operations, the relaxation runs inside one
 ``lax.while_loop`` (adaptive step via a bounded backtracking ``fori``), and
 the solve is differentiable end-to-end w.r.t. boundary shape and profiles —

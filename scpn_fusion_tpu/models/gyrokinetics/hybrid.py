@@ -1,7 +1,7 @@
 """Hybrid surrogate+GK transport lane: OOD detection, spot-check
 scheduling, correction, online learning.
 
-TPU-native equivalent of the reference's path-C architecture
+JAX-native equivalent of the reference's path-C architecture
 (``core/gk_ood_detector.py:85`` Mahalanobis/range/ensemble OOD,
 ``core/gk_scheduler.py:48`` periodic/adaptive/critical-region spot-check
 scheduling with a call budget, ``core/gk_corrector.py:60`` EMA-smoothed

@@ -1,6 +1,6 @@
 """Universal gyrokinetic-solver contract (GK path A).
 
-TPU-native analogue of the reference's adapter interface
+JAX-native analogue of the reference's adapter interface
 (``core/gk_interface.py:36-169``): one local-parameter contract
 (TGLF-10 parameterisation extended with Miller shaping and dimensional
 quantities), one output contract, and one abstract solver base that

@@ -6,13 +6,13 @@ velocity-space quadrature over the (E, lambda) grid of FLR-weighted drive and
 parallel-streaming contributions plus the adiabatic-electron response, then
 the most-unstable mode is extracted.
 
-TPU-first deltas:
+accelerator-first deltas:
 * the (E, lambda) double loop becomes one ``vmap``-ed assembly + weighted sum
   (two orders of magnitude fewer dispatches);
 * ``jnp.linalg.eig`` only exists on CPU, so the extraction has two lanes:
   dense ``eig`` (CPU) and an initial-value power method — propagate
   dphi/dt = -i M phi with RK4 under ``lax.scan``, read the eigenvalue from
-  the final Rayleigh quotient — which runs on TPU and is what a physical
+  the final Rayleigh quotient — which runs on accelerators and is what a physical
   initial-value GK code does anyway.
 
 Parity note: the reference computes drift/collision coefficients but
@@ -166,7 +166,7 @@ def most_unstable_mode_initial_value(
 ) -> IVResult:
     """Most-unstable eigenvalue of M via initial-value RK4 on
     dphi/dt = -i M phi, eigenvalue from the final Rayleigh quotient.
-    TPU-safe (no dense eig)."""
+    accelerator-safe (no dense eig)."""
     n = m.shape[0]
     phi0 = (jnp.ones((n,)) + 0.1 * jnp.sin(jnp.arange(n))).astype(jnp.complex128)
 
@@ -202,7 +202,7 @@ def solve_eigenvalue_single_ky(
 ) -> EigenMode:
     """Solve for the most-unstable mode at one k_y.
 
-    method: "eig" (dense, CPU), "initial_value" (TPU-safe), "auto".
+    method: "eig" (dense, CPU), "initial_value" (accelerator-safe), "auto".
     """
     ion = species_list[0]
     m = assemble_dispersion_matrix(

@@ -14,7 +14,7 @@ the strong-ballooning (outboard-midplane) limit with adiabatic electrons,
 
 (Romanelli 1989 / Beer-Hammett family), evaluated on the same (E, lambda)
 Gauss-Legendre grid and solved for complex omega by a fixed-iteration secant
-method under ``lax.fori_loop`` — fully jittable, runs on TPU, differentiable
+method under ``lax.fori_loop`` — fully jittable, runs on the accelerator, differentiable
 for critical-gradient scans.  Frequencies in units of c_s/R; drift and
 transit frequencies use the s-alpha outboard values omega_D = 2 k_y E_perp-ish
 curvature drive and k_par = 1/(q R).

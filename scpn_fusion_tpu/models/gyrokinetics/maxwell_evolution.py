@@ -10,7 +10,7 @@ claim boundary: it is *not* a Vlasov-Maxwell parity claim because the
 kinetic current is not self-consistently supplied by the 5D
 distribution (``self_consistent_kinetic_current_supported=False``).
 
-TPU-native design: each spectral mode evolves as a closed-form harmonic
+JAX-native design: each spectral mode evolves as a closed-form harmonic
 oscillator (``omega = c k_perp``), so the whole history is one
 broadcast evaluation over a ``(n_steps, n_kx, n_ky)`` tensor — the
 reference's per-step Python loop (``:187-253``) collapses into a single

@@ -1,6 +1,6 @@
 """Nonlinear 5D flux-tube gyrokinetic solver (delta-f, pseudo-spectral).
 
-TPU-native equivalent of the reference's nonlinear GK stack
+JAX-native equivalent of the reference's nonlinear GK stack
 (``core/gk_nonlinear.py:40`` over the ``_gk_nonlinear_{types,setup,
 operators,time}.py`` mixins, and its JAX twin ``core/jax_gk_nonlinear.py``).
 Same physics contract — perturbed distribution f(s, kx, ky, theta, v_par,
@@ -23,7 +23,7 @@ loops per species, everything here is a pure function over a precomputed
 species batched in one array), the whole trajectory is a ``lax.scan``, and
 multi-chip scaling shards velocity space over the device mesh
 (``parallel/gk_shard.py``) with ``psum`` for the velocity moments — the
-TPU-native replacement for the reference's rank-tile decomposition
+JAX-native replacement for the reference's rank-tile decomposition
 (``core/gk_domain_decomposition.py``).
 """
 

@@ -1,6 +1,6 @@
 """Closure-based quasilinear gyrokinetic transport model (profile-level).
 
-TPU-native port of the reference's ``core/gyrokinetic_transport.py`` —
+JAX-native port of the reference's ``core/gyrokinetic_transport.py`` —
 the compact closure workflow that sits between the analytic gyro-Bohm
 scaling and the full TGLF lane:
 

@@ -4,7 +4,7 @@ JAX port of ``core/gk_species.py:34-220``.  The velocity grid builds its
 Gauss-Legendre nodes host-side (numpy) at construction — quadrature layout is
 static — while everything evaluated on the grid is jnp.  ``bessel_j0`` uses
 the Abramowitz & Stegun 9.4.1/9.4.3 polynomial approximations (|err| < 1e-7)
-so FLR factors stay traceable on TPU (no scipy in the device path).
+so FLR factors stay traceable on the device (no scipy in the device path).
 """
 
 from __future__ import annotations

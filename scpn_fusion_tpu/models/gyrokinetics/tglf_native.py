@@ -1,6 +1,6 @@
 """Native TGLF-class quasilinear transport model (GK path A, no binary).
 
-TPU-native counterpart of the reference's ``core/gk_tglf_native.py:50-440``
+JAX-native counterpart of the reference's ``core/gk_tglf_native.py:50-440``
 (SAT0/SAT1/SAT2 spectral saturation, E×B shear quench, trapped-particle
 damping, multi-scale ITG–ETG coupling, FLR-weighted quasilinear fluxes;
 physics per Staebler 2007/2017, Waltz 1997, Maeyama 2015, Connor 1974).

@@ -1,6 +1,6 @@
 """Breeding-blanket neutronics: 1-group and 3-group cylindrical diffusion.
 
-TPU-native equivalent of the reference blanket stack
+JAX-native equivalent of the reference blanket stack
 (``nuclear/blanket_neutronics.py:54-340``, ``nuclear/multigroup_blanket.py:
 23-260`` and the Rust ``fusion-nuclear`` crate): steady-state cylindrical
 diffusion-reaction transport through an annular LiPb/Be blanket with

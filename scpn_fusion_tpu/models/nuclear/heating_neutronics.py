@@ -8,7 +8,7 @@ neutron-transport TBR estimate (``mcnp_lite_transport_tbr:160``), and
 the candidate sample/score/refine pipeline
 (``quick_candidate:231`` / ``refine_candidate_tbr:311``).
 
-TPU-native design decisions:
+JAX-native design decisions:
 
 * the heating proxy evaluates ALL rays at once as an
   ``(n_rays, n_steps)`` tensor — launch phases, pitches, survival

@@ -1,6 +1,6 @@
 """Plasma-wall interaction: Bohdansky-Yamamura sputtering + erosion.
 
-TPU-native equivalent of the reference PWI module
+JAX-native equivalent of the reference PWI module
 (``nuclear/pwi_erosion.py:26-160``): the reduced Bohdansky yield
 
     Y(E) = Q s_n(eps) (1 - (E_th/E)^{2/3})(1 - E_th/E)^2 f(angle)

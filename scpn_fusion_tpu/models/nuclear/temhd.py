@@ -6,7 +6,7 @@ lithium layer where thermoelectric currents J = -sigma S grad(T) crossed
 with the tokamak field drive convection that boosts the effective
 conductivity; ``run_temhd_experiment`` heat-flux scan).
 
-TPU-native: the per-step tridiagonal solve is the shared Thomas kernel,
+JAX-native: the per-step tridiagonal solve is the shared Thomas kernel,
 the whole transient runs in one ``lax.scan``, and heat-flux scans
 ``vmap`` over the experiment.
 """

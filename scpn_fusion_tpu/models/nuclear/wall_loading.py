@@ -6,9 +6,9 @@ map from the fusion profile, first-wall generation, line-of-sight
 ray-traced neutron wall loading, material dpa/He analysis, ash-poisoning
 burn feedback).
 
-TPU-native: the reference loops over wall segments on the host; here the
+JAX-native: the reference loops over wall segments on the host; here the
 (source-cell x wall-segment) transfer kernel — inverse-square spreading x
-incidence cosine — is ONE batched outer-product contraction (an MXU
+incidence cosine — is ONE batched outer-product contraction (one
 matmul against the source vector), so wall loading for new profiles is a
 single einsum after the geometry kernel is built once.
 """

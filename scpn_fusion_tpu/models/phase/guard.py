@@ -1,6 +1,6 @@
 """Sliding-window Lyapunov stability guard.
 
-TPU-native equivalent of the reference guard
+JAX-native equivalent of the reference guard
 (``phase/lyapunov_guard.py:42-160``): feed V(t) samples into a fixed-size
 ring buffer, estimate the finite-window Lyapunov exponent
 lambda = ln(V_last/V_first)/T, count consecutive threshold violations,

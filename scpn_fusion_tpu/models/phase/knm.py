@@ -1,6 +1,6 @@
 """Plasma-layer coupling matrices (Knm) + adaptive online tuning.
 
-TPU-native equivalent of the reference Knm stack (``phase/knm.py:52-80``,
+JAX-native equivalent of the reference Knm stack (``phase/knm.py:52-80``,
 ``phase/plasma_knm.py:112-380``, ``phase/adaptive_knm.py:39-160``): the
 8-layer plasma process hierarchy (micro-turbulence ... plasma-wall
 interaction) with a distance-decay coupling backbone, literature-motivated

@@ -1,6 +1,6 @@
 """Mean-field Kuramoto-Sakaguchi oscillators with a global field driver.
 
-TPU-native equivalent of the reference phase kernel
+JAX-native equivalent of the reference phase kernel
 (``phase/kuramoto.py:34-200`` + Rust ``fusion-phase``):
 
     dtheta_i/dt = omega_i + K R sin(psi_r - theta_i - alpha)

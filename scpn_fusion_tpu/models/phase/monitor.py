@@ -1,6 +1,6 @@
 """Phase observability: realtime UPDE monitor, stream codec, GK bridge.
 
-TPU-native port of the reference's phase-observability trio
+JAX-native port of the reference's phase-observability trio
 (VERDICT r1 missing #7):
 
 * ``phase/realtime_monitor.py:47-320`` — tick-by-tick UPDE monitor with

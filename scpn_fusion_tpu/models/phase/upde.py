@@ -1,6 +1,6 @@
 """Multi-layer UPDE (unified phase-dynamics equation) system.
 
-TPU-native equivalent of the reference UPDE tick
+JAX-native equivalent of the reference UPDE tick
 (``phase/upde.py:40-360`` + Rust ``py_upde_tick``): L plasma-process
 layers of Kuramoto oscillators coupled through an (L, L) matrix K
 (source row -> target column) with Sakaguchi lags alpha, per-layer
@@ -15,7 +15,7 @@ loops over layers twice per tick.  Here layers live in a dense padded
     coupling expanded by sin(a-b) identity into two (L,L)@(L,) matmuls
     dtheta = omega + S_m cos(theta) - C_m sin(theta) + zeta_m sin(Psi-theta)
 
-— no per-layer Python loops, MXU-friendly, and the whole trajectory runs
+— no per-layer Python loops, matmul-friendly, and the whole trajectory runs
 under ``lax.scan`` with V_layer/V_global Lyapunov histories.
 """
 

@@ -1,6 +1,6 @@
 """Ideal-MHD s-alpha ballooning eigenvalue solver with second-stability access.
 
-TPU-native port of the reference's full ballooning-equation machinery
+JAX-native port of the reference's full ballooning-equation machinery
 (``core/ballooning_solver.py:33-140``: shooting integration of the s-alpha
 ballooning ODE + binary-searched first-stability boundary, and
 ``core/ballooning_second_stability.py:50-161``: critical-alpha-vs-shear table

@@ -1,11 +1,11 @@
 """Reduced ECCD / NBI / LHCD current-drive source models.
 
-TPU-native equivalent of the reference (``core/current_drive.py:23-200``):
+JAX-native equivalent of the reference (``core/current_drive.py:23-200``):
 Gaussian absorbed-power profiles, efficiency-scaled driven current for
 ECCD/LHCD (j = eta P_abs / (n_e T_e)), and the NBI fast-ion slowing-down
 closure — the reference's per-radius Python loop over the Spitzer time
 becomes one vectorised expression, with the e^4 Coulomb prefactor hoisted to
-a host double so f32 TPU arithmetic never sees ~1e-76 intermediates.
+a host double so f32 device arithmetic never sees ~1e-76 intermediates.
 
 Sources are frozen dataclasses (static under jit); ``CurrentDriveMix`` is a
 pytree-free tuple-of-sources aggregate whose profiles compose with the

@@ -1,6 +1,6 @@
 """Divertor heat-exhaust laboratory: tungsten vs liquid-lithium vapor shield.
 
-TPU-native port of the reference's ``core/divertor_thermal_sim.py:19-244``
+JAX-native port of the reference's ``core/divertor_thermal_sim.py:19-244``
 (``DivertorLab``): Eich-scaling parallel heat flux, two-point SOL transport,
 1D tungsten monoblock conduction limit, self-consistent lithium vapor
 shielding, Hartmann-corrected TEMHD pressure loss, and the combined

@@ -1,6 +1,6 @@
 """2D Hasegawa-Wakatani drift-wave turbulence for edge-chaos forecasting.
 
-TPU-native port of the reference's turbulence-oracle physics half
+JAX-native port of the reference's turbulence-oracle physics half
 (``core/turbulence_oracle.py:29-143`` ``DriftWavePhysics``): the two-field
 Hasegawa-Wakatani system for electrostatic potential ``phi`` and density
 fluctuation ``n`` on a doubly periodic box,

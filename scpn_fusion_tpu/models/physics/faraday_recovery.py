@@ -4,7 +4,7 @@ Covers the reference's ``core/faraday_recovery.py`` (closed-form
 induction relation ``EMF = -N pi (R_s^2 dB/dt + 2 B R_s dR/dt)``,
 ``integrated_recovery_energy:362``, flux-derivative closure audit
 ``:432-449``, fail-closed energy-budget gates ``:631-664``, and the
-pulsed-compression adapter ``:124-290``) with a TPU-native design:
+pulsed-compression adapter ``:124-290``) with a JAX-native design:
 
 * the numeric core (:func:`faraday_recovery`) takes *arrays* — one
   fused, jit-friendly evaluation over the whole trajectory instead of

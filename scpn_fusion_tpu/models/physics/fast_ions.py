@@ -1,7 +1,7 @@
 """Fast-ion population physics: Monte-Carlo ensembles, orbit
 classification, prompt loss, and collisional slowing-down.
 
-TPU-native counterpart of the reference's fast-ion machinery
+JAX-native counterpart of the reference's fast-ion machinery
 (``core/orbit_following.py:167-442`` — ``OrbitClassifier``,
 ``MonteCarloEnsemble``, ``first_orbit_loss``, ``SlowingDown``; full-orbit
 twin ``fusion-core/src/particles.rs``).  Design deltas:

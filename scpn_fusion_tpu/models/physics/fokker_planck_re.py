@@ -1,6 +1,6 @@
 """Runaway-electron Fokker-Planck kernel (1D in momentum), compiled.
 
-TPU-native port of the reference's MUSCL-Hancock momentum-space solver
+JAX-native port of the reference's MUSCL-Hancock momentum-space solver
 (``control/fokker_planck_re.py:251-616``; Rust twin
 ``fusion-physics/src/fokker_planck.rs:130``): log-spaced momentum grid
 (p normalised to m_e c), Hesslow-style advection coefficient

@@ -3,7 +3,7 @@
 Covers the reference's MIF/FRC stability family
 (``core/tilt_mode_frc.py``, ``core/frc_rigid_rotor_closures.py:167``
 ``_s_parameter_from_profile``, ``core/frc_rigid_rotor_validation.py:27``
-``validate_equilibrium``) with a TPU-native design:
+``validate_equilibrium``) with a JAX-native design:
 
 * the Steinhauer Eq. 27 kinetic parameter
   ``s = (1/R_s) \\int_0^{R_s} r / rho_i(r) dr`` is computed with a

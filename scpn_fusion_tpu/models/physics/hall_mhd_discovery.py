@@ -1,6 +1,6 @@
 """Reduced 2D Hall-MHD discovery sandbox: tearing drive, sweeps, threshold.
 
-TPU-native port of the reference's ``core/hall_mhd_discovery.py:103-447``
+JAX-native port of the reference's ``core/hall_mhd_discovery.py:103-447``
 (``HallMHD``): doubly-periodic pseudo-spectral reduced Hall-MHD for
 (phi, psi) with magnetic flutter, the Hall term (rho_s^2 [J, psi]),
 hyper-viscosity, 2/3-rule dealiasing, an optional static current-sheet

@@ -1,6 +1,6 @@
 """Pulsed axisymmetric Hall-MHD flux carrier (Ono Eq. 8 closure), compiled.
 
-TPU-native port of the reference's pulsed-compression flux carrier
+JAX-native port of the reference's pulsed-compression flux carrier
 (``core/hall_mhd_pulsed.py:39-341``; Rust twin
 ``fusion-physics/src/hall_mhd_pulsed.rs``): Spitzer resistivity, circular-loop
 Faraday drive ``E_theta = -r/2 dB_ext/dt`` from the external-field ramp,

@@ -1,6 +1,6 @@
 """FRC pulsed magnetic compression: coil circuit + adiabatic piston + flux.
 
-TPU-native port of the reference's pulsed-compression lane
+JAX-native port of the reference's pulsed-compression lane
 (``core/pulsed_compression.py:139-545``): a voltage-driven R-L coil bank
 produces the external solenoid field ``B_ext = mu0 N I / L``; the magnetic
 piston ``(p_int - B^2/2mu0) * 2 pi R L / m`` drives the separatrix radius;

@@ -1,6 +1,6 @@
 """Quasi-3D physics contracts: cross-subsystem validation-grade coupling.
 
-TPU-native re-design of the reference's Task-4 contract module
+Compiled re-design of the reference's Task-4 contract module
 (``core/quasi_3d_contracts.py``): synthetic SOLPS-like toroidal heat-flux
 references derived from JET G-EQDSK data (:56-126), axisymmetric-vs-
 stellarator force-balance observables (:126-199), Hall-MHD zonal-ratio
@@ -9,7 +9,7 @@ estimation (:200-251), a toroidal-poloidal force-residual relaxation
 cooling (:317-372), divertor heat-load profile construction (:373-430),
 and TBR calibration against erosion trend curves (:431-508).
 
-Design deltas (deliberate, TPU-first):
+Design deltas (deliberate, accelerator-first):
 * The reference steps ONE shared ``TEMHD_Stabilizer`` sequentially across
   all profile points inside a double Python loop (:361-365) — its thermal
   state bleeds between toroidal positions.  Here each profile point

@@ -1,6 +1,6 @@
 """RF heating: ICRH Hamiltonian ray tracing + ECRH deposition.
 
-TPU-native equivalent of the reference RF stack (``core/rf_heating.py:93-526``):
+JAX-native equivalent of the reference RF stack (``core/rf_heating.py:93-526``):
 
 * ICRH (50 MHz fast-wave) ray tracing — the reference integrates the
   Hamiltonian ray equations dr/dt = -dD/dk, dk/dt = +dD/dr per ray with
@@ -14,7 +14,7 @@ TPU-native equivalent of the reference RF stack (``core/rf_heating.py:93-526``):
 * ICRH power deposition (``compute_power_deposition``) — per-segment
   cyclotron damping exp(-delta^2); the sequential Beer-Lambert power drain
   along each ray becomes a closed-form ``cumsum`` in log space, and the
-  radial binning is a one-hot matmul (MXU) instead of a scatter loop.
+  radial binning is a one-hot matmul instead of a scatter loop.
 * ECRH (170 GHz) Gaussian deposition at the cold resonance layer with
   Doppler width + single-pass optical-depth efficiency
   (``ECRHHeatingSystem.compute_deposition``).
@@ -253,7 +253,7 @@ def ecrh_deposition(p: ECRHParams, *, p_ecrh_mw: float = 20.0,
     p_dep = jnp.exp(-((rho - rho_res) ** 2) / (2.0 * delta_rho**2)) / dv
 
     # omega_pe^2/omega^2 with the e^2/(m_e eps0) prefactor folded host-side
-    # (f32-safe: e^2 ~ 2.6e-38 underflows on TPU).
+    # (f32-safe: e^2 ~ 2.6e-38 underflows in f32).
     wpe_sq_per_n = E_CHARGE**2 / (M_E * EPS_0)      # host double
     wpe_ratio_sq = jnp.asarray(n_e_m3, jnp.float32) * (wpe_sq_per_n
                                                        / p.omega**2)

@@ -1,4 +1,4 @@
-"""DREAM-style fluid runaway-electron rates + balance (TPU-native).
+"""DREAM-style fluid runaway-electron rates + balance (JAX-native).
 
 Reduced-order runaway density contract ``dn_RE/dt = S_Dreicer +
 Gamma_ava n_RE - n_RE/tau_loss`` with the corrected Connor-Hastie Dreicer

@@ -4,7 +4,7 @@ Role-parity with the reference's SOC lane (Rust
 ``fusion-physics/src/sandpile.rs`` running the classic
 Hwa-Kardar/Bak-style 1D sandpile as a turbulence-transport cartoon, and
 ``control/advanced_soc_fusion_learning.py`` which learns on avalanche
-statistics).  TPU-native: the pile is a 1D array, one drive-relax cycle is
+statistics).  JAX-native: the pile is a 1D array, one drive-relax cycle is
 a fixed number of synchronous toppling sweeps (branch-free ``jnp.where``),
 and the whole drive sequence runs in one ``lax.scan`` — avalanche sizes
 and the criticality statistics come out as traced arrays.

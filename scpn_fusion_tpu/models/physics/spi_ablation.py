@@ -1,6 +1,6 @@
 """Multi-fragment shattered-pellet-injection (SPI) ablation solver.
 
-TPU-native counterpart of the reference's Lagrangian fragment tracker
+JAX-native counterpart of the reference's Lagrangian fragment tracker
 (``/root/reference/src/scpn_fusion/control/spi_ablation.py:50-198``):
 N neutral fragments fly from an outboard injector into the plasma and
 ablate with the shielding-modified Parks scaling

@@ -1,6 +1,6 @@
 """Stellarator geometry, neoclassical transport, and ISS04 confinement.
 
-TPU-native port of the reference's ``core/stellarator_geometry.py:34-340``
+JAX-native port of the reference's ``core/stellarator_geometry.py:34-340``
 (Boozer-coordinate flux surfaces with helical mirror + axis-excursion
 |B| modulation, Nemov-style effective-ripple spectrum estimate, ISS04
 scaling, 1/nu neoclassical chi; physics per Boozer 1981, Yamada 2005,

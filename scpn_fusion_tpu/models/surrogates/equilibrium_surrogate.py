@@ -2,7 +2,7 @@
 
 Reference lane: ``core/neural_equilibrium.py:135-258`` (SimpleMLP +
 MinimalPCA, 1.05 ms inference) and ``core/neural_equilibrium_kernel.py``
-(the O(1) surrogate used by the HPC bridge).  TPU-first twist: the training
+(the O(1) surrogate used by the HPC bridge).  accelerator-first twist: the training
 data is generated by this framework's own compiled free-boundary solver —
 sampling coil currents, solving in a vmapped batch, fitting PCA + MLP —
 so the entire generate->reduce->train pipeline runs on device.

@@ -1,13 +1,13 @@
 """Echo-state network (reservoir computing) oracle for chaotic forecasting.
 
-TPU-native port of the reference's ``OracleESN``
+JAX-native port of the reference's ``OracleESN``
 (``core/turbulence_oracle.py:145-231``): a fixed random reservoir
 ``x' = tanh(W_in u + W_res x)`` harvested over a training sequence, a
 ridge-regression readout, and closed-loop autoregressive prediction.
 
 Design differences from the reference (all disclosed):
 
-* the sparse reservoir is a dense masked matrix — on the MXU a 500x500
+* the sparse reservoir is a dense masked matrix — as one matmul a 500x500
   dense matmul is faster than any sparse format, and the zero pattern is
   preserved exactly;
 * the spectral radius is normalised with a power iteration on the device

@@ -9,7 +9,7 @@ evolved one step under the modified Hasegawa-Wakatani dispersion
 ``gamma = kappa k_y k^2/(alpha+k^2)^2 - nu k^4``) with low-k forcing
 (reference ``_generate_multi_regime_pairs:61-152``).
 
-TPU-native design: the reference builds samples one at a time in a
+JAX-native design: the reference builds samples one at a time in a
 Python loop over ``np.fft`` calls; here parameters are sampled for the
 whole batch at once and ALL pairs are generated in one vmapped
 spectral program (batched ``fft2``/``ifft2``).  The trained operator

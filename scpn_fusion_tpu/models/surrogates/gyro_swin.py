@@ -1,6 +1,6 @@
 """GyroSwin-like core-turbulence surrogate + GENE-proxy speed benchmark.
 
-TPU-native port of the reference's ``core/gyro_swin_surrogate.py:28-190``
+JAX-native port of the reference's ``core/gyro_swin_surrogate.py:28-190``
 (GAI-01 lane): a deterministic, dependency-light turbulence surrogate —
 random-feature ridge regression standing in for the attention model —
 benchmarked for speed and accuracy against a deliberately-slow iterative

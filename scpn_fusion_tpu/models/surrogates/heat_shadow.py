@@ -5,7 +5,7 @@ deterministic ridge-fit polynomial surrogate for the divertor
 magnetic-shadow fraction, with a synthetic reference law for dataset
 generation, shadow->heat-flux attenuation, and an RMSE% quality metric.
 
-TPU-native design: the model is a *functional* weights vector (a
+JAX-native design: the model is a *functional* weights vector (a
 pytree leaf) rather than a mutable class — ``fit`` returns weights,
 ``predict`` is a pure jitted function of ``(weights, features)``, so
 the surrogate composes with ``vmap``/``grad`` and can sit inside other

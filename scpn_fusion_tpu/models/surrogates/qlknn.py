@@ -8,7 +8,7 @@ parameter-scan + Jenko critical-gradient analytic target generator
 (``TrainingDataGenerator:274-359``), and the features -> fluxes
 transport wrapper (``QLKNNTransportModel:467``).
 
-TPU-native design: every stage is pure jnp — the per-sample Python loop
+JAX-native design: every stage is pure jnp — the per-sample Python loop
 in the reference's target generator (``:323-358``) is one vectorised
 expression; training rides the repo's shared MLP backbone
 (``models/surrogates/mlp.py``: pytree params, whole fit as one

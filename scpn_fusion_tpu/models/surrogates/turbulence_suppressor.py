@@ -1,6 +1,6 @@
 """Spectral turbulence generator + suppression controller closed loop.
 
-TPU-native port of the reference's FNO turbulence-suppression lane
+JAX-native port of the reference's FNO turbulence-suppression lane
 (``core/fno_turbulence_suppressor.py:69-298``): a Fourier-space drift-wave
 turbulence generator with predator-prey zonal-flow coupling, a suppression
 controller (reduced-order field-statistics backend, with an optional FNO

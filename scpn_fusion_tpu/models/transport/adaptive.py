@@ -1,6 +1,6 @@
 """Adaptive time-stepping for the CN transport solver (Richardson + PI).
 
-TPU-native redesign of the reference's ``AdaptiveTimeController``
+Compiled redesign of the reference's ``AdaptiveTimeController``
 (``integrated_transport_solver_adaptive.py:17-127``): the local truncation
 error of each step is estimated by Richardson extrapolation — one full CN
 step vs two half steps (CN is second order, so

@@ -13,7 +13,7 @@ source closure (``derive_effective_source_closure:149``), and the
 STRAHL-style artifact builder (``build_aurora_strahl_charge_state_artifact:320``).
 
 This is *not* an Aurora wrapper — like the reference it is a native
-solver held to the same-case contract.  TPU-native design:
+solver held to the same-case contract.  JAX-native design:
 
 * the transport step treats all charge states at once (faces on axis 0,
   states on axis 1) — the reference's double Python loop over states
@@ -164,7 +164,7 @@ def radial_transport_budget_diagnostic(case: AuroraParityCase,
                                     case.major_radius_m)
     rel = abs(float(after) - float(before)) / max(abs(float(before)), 1.0)
     # The FV update is exactly conservative in exact arithmetic; the
-    # representable floor scales with the working dtype (f32 on the TPU
+    # representable floor scales with the working dtype (f32 on the device
     # path carries ~1e-7 rounding in the update itself, x64 ~1e-12).
     eps = float(jnp.finfo(after_density.dtype).eps)
     tol = max(1.0e-12, 2.0e3 * eps)

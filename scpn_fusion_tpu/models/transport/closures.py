@@ -34,7 +34,7 @@ def _coulomb_prefactor(mass_kg: float) -> float:
     nu = K * n_19 * Z_factor * ln_lambda / T_keV^1.5  [1/s].
 
     Hoisting e^4 / (eps0^2 sqrt(m) (1e3 e)^1.5) into one host-side float is
-    required for TPU f32: the naive SI expression underflows (n * e^4 ~
+    required for f32: the naive SI expression underflows (n * e^4 ~
     1e-56 < f32 min normal), which silently floors the chi closures and
     NaNs the pedestal model (found by on-hardware probing).
     """

@@ -1,6 +1,6 @@
 """GS <-> transport self-consistent coupling, fully compiled.
 
-TPU-native redesign of the reference's coupling mixin
+Compiled redesign of the reference's coupling mixin
 (``integrated_transport_solver_coupling.py:39-230``): the outer fixed-point
 loop — n_inner transport steps under ``lax.scan``, 1D->2D profile projection,
 a full compiled GS equilibrium solve, psi-residual convergence — runs inside
@@ -124,7 +124,6 @@ def run_self_consistent(
     mu0 = float(cfg.physics.vacuum_permeability)
     p_c, ff_c = profile_coeffs_from_physics(cfg.physics, dtype)
     sol = cfg.solver
-    use_pallas = sol.use_pallas and jax.default_backend() == "tpu"
 
     def gs_solve(psi_in: jnp.ndarray) -> EquilibriumResult:
         return solve_fixed_boundary_impl(
@@ -140,7 +139,6 @@ def run_self_consistent(
             anderson_m=sol.anderson_depth,
             mu0=mu0,
             use_gs_criterion=False,
-            use_pallas=use_pallas,
         )
 
     def transport_block(ts: TransportState) -> TransportState:

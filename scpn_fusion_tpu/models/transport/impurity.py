@@ -1,6 +1,6 @@
 """Charge-state-resolved impurity transport (ionisation ladder + radiation).
 
-TPU-native equivalent of the reference's impurity stack
+JAX-native equivalent of the reference's impurity stack
 (``core/impurity_transport*.py``, ~2.5k LoC incl. the Aurora-parity lane):
 the charge-state ladder
 

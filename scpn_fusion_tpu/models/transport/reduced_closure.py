@@ -1,6 +1,6 @@
 """Reduced multichannel critical-gradient transport closure (ITG/TEM/ETG).
 
-TPU-native counterpart of the reference's analytic neural-transport
+JAX-native counterpart of the reference's analytic neural-transport
 fallback — ``core/_neural_transport_analytic.py:67-148``
 (``critical_gradient_model``) with its channel classifier
 (``_dominant_channel`` :50-64) and Wesson Ch.14 Eq.14.5.4 collisionality

@@ -1,6 +1,6 @@
 """1.5D integrated transport stepper (multi-ion Crank-Nicolson), fully jitted.
 
-TPU-native redesign of the reference's ``TransportSolver`` runtime
+Compiled redesign of the reference's ``TransportSolver`` runtime
 (``integrated_transport_solver_runtime.py:187-530``): one transport step —
 species burn/fueling, auxiliary heating deposition, Patankar-implicit
 radiation sinks, symmetric implicit electron-ion equilibration, Crank-Nicolson

@@ -1,6 +1,6 @@
 """Monte Carlo uncertainty quantification for fusion performance.
 
-TPU-native equivalent of the reference UQ chain
+JAX-native equivalent of the reference UQ chain
 (``core/uncertainty.py:124-340``, ``core/uncertainty_full_chain.py:44-300``):
 sample the IPB98(y,2) scaling-law coefficients from their Gaussian
 (optionally correlated) posteriors, propagate through confinement ->

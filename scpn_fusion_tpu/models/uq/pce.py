@@ -1,6 +1,6 @@
 """Polynomial chaos expansion (Hermite, total order) + Sobol indices.
 
-TPU-native equivalent of the reference PCE engine (Rust
+JAX-native equivalent of the reference PCE engine (Rust
 ``fusion-ml/src/pce.rs:20-200``): multivariate probabilists'-Hermite chaos
 with a total-order multi-index basis, least-squares coefficient fit via
 SVD pseudo-inverse, single-point prediction, first-order Sobol indices
@@ -10,7 +10,7 @@ The basis construction is fully vectorised: a Hermite value table
 He_0..He_P is built once by recurrence for every (sample, dim), then each
 basis term is a product gather — the design matrix assembly is two fused
 elementwise passes and one transpose-free gather, no per-term loops, and
-the fit itself is one (n_samples, n_terms) SVD on the MXU.
+the fit itself is one (n_samples, n_terms) SVD as one matmul.
 """
 
 from __future__ import annotations

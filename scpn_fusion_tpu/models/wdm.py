@@ -7,7 +7,7 @@ redeposition scales with edge density and field, the net impurity flux
 feeds back into the core impurity channel, and accumulated high-Z
 radiation can quench the core temperature ("radiative collapse").
 
-TPU-native design: the reference's host ``for`` loop over 10 ms steps
+JAX-native design: the reference's host ``for`` loop over 10 ms steps
 with per-step Python dict history (``wdm_engine.py:83-151``) becomes ONE
 ``lax.scan`` over the jitted transport step
 (``models/transport/solver.py`` ``evolve_profiles``), with the wall

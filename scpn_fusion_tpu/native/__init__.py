@@ -1,4 +1,4 @@
-"""Native C++ host runtime (CPU lane + parity fixture for Pallas kernels)."""
+"""Native C++ host runtime (CPU lane + parity fixture for the SOR sweep)."""
 
 from scpn_fusion_tpu.native.runtime import (
     NativeGSSolver,

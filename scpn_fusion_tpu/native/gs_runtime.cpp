@@ -1,11 +1,11 @@
 // Native CPU runtime for the Grad-Shafranov elliptic lane.
 //
-// This is the framework's C++ "host runtime" twin of the TPU Pallas lane:
+// This is the framework's C++ "host runtime" twin of the XLA SOR sweep:
 // the reference ships a C++ OpenMP red-black SOR solver behind a C ABI
 // (reference: src/scpn_fusion/hpc/solver.cpp:93-128, types.h, bridged by
 // hpc/hpc_bridge.py:89-456).  We keep the same role — a host-side
-// accelerator for environments without a TPU and a parity fixture for the
-// Pallas kernel — but the design is our own:
+// accelerator for environments without a GPU and a parity fixture for the
+// device sweep — but the design is our own:
 //
 //  * an opaque arena-style handle owning all solver buffers (one malloc per
 //    create, no per-step allocation),

@@ -14,8 +14,8 @@ a host-side accelerated elliptic lane with
   (``utils/npref.py``) — mirroring the reference's "every native path has a
   pure-Python fallback" contract (``ARCHITECTURE.md:175-178``).
 
-The TPU compute path never goes through this module; it exists for CPU
-deployments and as an independent parity fixture for the Pallas SOR kernel.
+The device compute path never goes through this module; it exists for CPU
+deployments and as an independent parity fixture for the SOR sweep.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Bounded Tikhonov least squares, jittable and differentiable.
 
-TPU-native replacement for the reference's ``scipy.optimize.lsq_linear``
+JAX-native replacement for the reference's ``scipy.optimize.lsq_linear``
 calls in coil-current optimisation (``fusion_kernel_free_boundary.py:
 491-559``): a projected FISTA (accelerated projected gradient) on
 

@@ -1,6 +1,6 @@
 """Geometric multigrid for the GS* operator, XLA-native.
 
-TPU-first re-design of the reference's recursive NumPy V-cycle
+Compiled re-design of the reference's recursive NumPy V-cycle
 (``core/multigrid_solve.py:57-335``): the level hierarchy is *unrolled at
 trace time* (all shapes static), so one ``jit`` of ``vcycle`` compiles the
 entire V-cycle — restriction, coarse solves, prolongation, smoothing — into a
@@ -23,53 +23,12 @@ from scpn_fusion_tpu.ops.stencil import gs_residual, sor_step
 
 
 def _downsample_even(x: jnp.ndarray, nz_c: int, nr_c: int) -> jnp.ndarray:
-    """x[2i, 2j] without strided gathers: pad to even extent, reshape so the
-    even entries land on a plain (non-strided) index.
-
-    Strided slicing/scatter (``x[::2, ::2]``, ``.at[::2, ::2].set``) lowers to
-    catastrophically slow code on TPU (~1.8 ms per restrict+prolong pair at
-    257^2, measured); pad+reshape+index is layout-friendly and ~100x cheaper.
-    """
+    """x[2i, 2j] as pad to even extent + reshape + plain index: the even
+    entries land on a non-strided index, so XLA emits one fused copy."""
     pad_z = 2 * nz_c - x.shape[0]
     pad_r = 2 * nr_c - x.shape[1]
     xp = jnp.pad(x, ((0, pad_z), (0, pad_r)))
     return xp.reshape(nz_c, 2, nr_c, 2)[:, 0, :, 0]
-
-
-def downsample_even_mxu(x: jnp.ndarray, nz_c: int, nr_c: int) -> jnp.ndarray:
-    """x[2i, 2j] as two selection matmuls on the MXU.
-
-    At 513²+ the pad/reshape path above turns into a lane-strided
-    relayout that costs ~0.64 ms at 1025² on-chip; the same selection as
-    0/1 matmuls (rows from the left, columns from the right) runs in
-    0.08 ms and — with ``precision="float32"`` so the MXU does not
-    truncate inputs to bf16 — is BITWISE identical (each output element
-    is one input element plus exact zeros; measured max dev 0.0 on-chip,
-    2026-08-20).  The selection matrices are trace-time constants, so XLA
-    hoists them into the compiled constant pool."""
-    nz, nr = x.shape
-    sel_z = jnp.zeros((nz_c, nz), x.dtype).at[
-        jnp.arange(nz_c), 2 * jnp.arange(nz_c)].set(1.0)
-    sel_r = jnp.zeros((nr_c, nr), x.dtype).at[
-        jnp.arange(nr_c), 2 * jnp.arange(nr_c)].set(1.0)
-    return jnp.matmul(jnp.matmul(sel_z, x, precision="float32"), sel_r.T,
-                      precision="float32")
-
-
-def upsample_even_mxu(e: jnp.ndarray, nz_f: int, nr_f: int) -> jnp.ndarray:
-    """Embed a coarse field at the even fine positions (2i, 2j), zeros
-    elsewhere — the transpose of ``downsample_even_mxu``, again as two
-    exact selection matmuls (``precision="float32"``).  The stack/reshape
-    interleave this replaces is the same pathological lane relayout as the
-    strided gather (measured ~1.3 ms per composed V-cycle at 1025² when
-    the coarse error is loop-varying, 2026-08-20)."""
-    nz_c, nr_c = e.shape
-    sel_z = jnp.zeros((nz_c, nz_f), e.dtype).at[
-        jnp.arange(nz_c), 2 * jnp.arange(nz_c)].set(1.0)
-    sel_r = jnp.zeros((nr_c, nr_f), e.dtype).at[
-        jnp.arange(nr_c), 2 * jnp.arange(nr_c)].set(1.0)
-    return jnp.matmul(jnp.matmul(sel_z.T, e, precision="float32"), sel_r,
-                      precision="float32")
 
 
 def restrict_full_weight(fine: jnp.ndarray) -> jnp.ndarray:
@@ -138,20 +97,8 @@ def smooth(
     d_z: float,
     omega: float,
     n_sweeps: int,
-    use_pallas: bool = False,
 ) -> jnp.ndarray:
-    """Red-black SOR smoother: ``n_sweeps`` full sweeps.
-
-    With ``use_pallas`` the whole stage is ONE VMEM-resident kernel
-    (``ops/pallas_stencil.py``) instead of ~10 XLA ops per sweep — the op
-    count per V-cycle drops by ~10x, which matters because small-grid stencil
-    ops are fixed-overhead-bound on TPU, not bandwidth-bound.
-    """
-    if use_pallas:
-        from scpn_fusion_tpu.ops.pallas_stencil import sor_sweeps_pallas
-        return sor_sweeps_pallas(psi, source, r_1d, d_r, d_z,
-                                 jnp.asarray(omega, psi.dtype), n_sweeps,
-                                 interpret=False)
+    """Red-black SOR smoother: ``n_sweeps`` full sweeps."""
     for _ in range(n_sweeps):
         psi = sor_step(psi, source, r_1d, d_r, d_z, omega)
     return psi
@@ -168,85 +115,13 @@ def _vcycle_impl(
     post_smooth: int,
     min_grid: int,
     coarse_sweeps: int,
-    use_pallas: bool = False,
 ) -> jnp.ndarray:
     nz, nr = psi.shape
     if min_grid >= nz or min_grid >= nr:
         # Coarsest level: "direct" solve by many smoothing sweeps.
-        return smooth(psi, source, r_1d, d_r, d_z, omega, coarse_sweeps,
-                      use_pallas)
+        return smooth(psi, source, r_1d, d_r, d_z, omega, coarse_sweeps)
 
-    # Fused tail: on TPU the remaining sub-cycle from a <=257^2 level runs
-    # as ONE Pallas kernel (embedded-stride levels, ``ops/pallas_mg.py``) —
-    # the coarse XLA ladder is per-op dispatch overhead, ~0.38 ms of the
-    # headline V-cycle's 0.40 ms.  Numerics identical (parity pinned by
-    # test_pallas_mg.py); falls through to the recursion off-TPU or on
-    # non-square / non-2^k+1 grids.
-    if (use_pallas and nz == nr and nz <= 257
-            and ((nz - 1) & (nz - 2)) == 0):
-        from scpn_fusion_tpu.ops.pallas_mg import fused_coarse_vcycle
-        return fused_coarse_vcycle(
-            psi, source, r_1d, d_r, d_z, omega,
-            pre_smooth=pre_smooth, post_smooth=post_smooth,
-            min_grid=min_grid, coarse_sweeps=coarse_sweeps,
-            interpret=False)
-
-    # Fine-level wrap: levels above the fused-tail VMEM cap (513²) fuse
-    # their smoothing + transfer legs into two Pallas kernels each
-    # (``ops/pallas_mg.py:fine_presmooth_restrict`` / ``fine_prolong_smooth``)
-    # — the XLA residual/restrict/prolong ops were ~0.22 ms of the ~0.28 ms
-    # 513² V-cycle.  Same numerics as the unfused path below (parity pinned
-    # by test_pallas_mg.py).
-    if (use_pallas and nz == nr and 257 < nz <= 513
-            and ((nz - 1) & (nz - 2)) == 0):
-        from scpn_fusion_tpu.ops.pallas_mg import (
-            fine_presmooth_restrict, fine_prolong_smooth,
-        )
-        psi_s, d_coarse = fine_presmooth_restrict(
-            psi, source, r_1d, d_r, d_z, omega,
-            pre_smooth=pre_smooth, interpret=False)
-        e_coarse = _vcycle_impl(
-            jnp.zeros_like(d_coarse), d_coarse, r_1d[::2],
-            d_r * 2.0, d_z * 2.0, omega, pre_smooth, post_smooth,
-            min_grid, coarse_sweeps, use_pallas,
-        )
-        return fine_prolong_smooth(
-            psi_s, source, e_coarse, r_1d, d_r, d_z, omega,
-            post_smooth=post_smooth, interpret=False)
-
-    # Tiled fine-level wrap: levels above the whole-grid VMEM cap (1025²,
-    # 2049², 4097²) fuse the same two legs TILED over Z-chunks with
-    # per-chunk halo strips (``ops/pallas_mg_tiled.py``) — one pallas_call
-    # per leg, pipeline-double-buffered, ~1x HBM traffic vs the unfused
-    # XLA ladder's many passes (VERDICT r4 next #2: the 1.85x per-point
-    # regression at 1025² lived exactly here).  Same numerics (parity
-    # pinned by test_pallas_mg_tiled.py).
-    if (use_pallas and nz == nr and 513 < nz <= 4097
-            and ((nz - 1) & (nz - 2)) == 0):
-        from scpn_fusion_tpu.ops.pallas_mg_tiled import (
-            tiled_presmooth_restrict, tiled_prolong_smooth,
-        )
-        psi_s, d_coarse = tiled_presmooth_restrict(
-            psi, source, r_1d, d_r, d_z, omega,
-            pre_smooth=pre_smooth, interpret=False)
-        e_coarse = _vcycle_impl(
-            jnp.zeros_like(d_coarse), d_coarse, r_1d[::2],
-            d_r * 2.0, d_z * 2.0, omega, pre_smooth, post_smooth,
-            min_grid, coarse_sweeps, use_pallas,
-        )
-        return tiled_prolong_smooth(
-            psi_s, source, e_coarse, r_1d, d_r, d_z, omega,
-            post_smooth=post_smooth, interpret=False)
-
-    # Levels above every Pallas cap (non-square / non-2^k+1 / >4097)
-    # smooth via XLA; the Pallas flag still propagates DOWN the recursion,
-    # so eligible coarser levels keep their fused kernels.  These huge
-    # levels are genuinely HBM-bandwidth-bound, where XLA's fused stencil
-    # is already near-roofline — the Pallas win is dispatch overhead on
-    # SMALL grids.
-    pallas_here = use_pallas and (nz * nr * psi.dtype.itemsize * 3
-                                  <= 12 * 2**20)
-    psi = smooth(psi, source, r_1d, d_r, d_z, omega, pre_smooth, pallas_here)
+    psi = smooth(psi, source, r_1d, d_r, d_z, omega, pre_smooth)
 
     # Coarse-grid RHS: r = source - L[psi]  (the error equation L[e] = r).
     defect = gs_residual(psi, source, r_1d, d_r, d_z)
@@ -256,17 +131,16 @@ def _vcycle_impl(
     e_coarse = _vcycle_impl(
         jnp.zeros_like(d_coarse), d_coarse, r_coarse,
         d_r * 2.0, d_z * 2.0, omega, pre_smooth, post_smooth,
-        min_grid, coarse_sweeps, use_pallas,
+        min_grid, coarse_sweeps,
     )
 
     psi = psi + prolongate_bilinear(e_coarse, nz, nr)
-    return smooth(psi, source, r_1d, d_r, d_z, omega, post_smooth,
-                  pallas_here)
+    return smooth(psi, source, r_1d, d_r, d_z, omega, post_smooth)
 
 
 @partial(jax.jit, static_argnames=(
     "d_r", "d_z", "omega", "pre_smooth", "post_smooth", "min_grid",
-    "coarse_sweeps", "use_pallas"))
+    "coarse_sweeps"))
 def vcycle(
     psi: jnp.ndarray,
     source: jnp.ndarray,
@@ -279,7 +153,6 @@ def vcycle(
     post_smooth: int = 3,
     min_grid: int = 5,
     coarse_sweeps: int = 50,
-    use_pallas: bool = False,
 ) -> jnp.ndarray:
     """One geometric-multigrid V-cycle for ``Delta* psi = source``.
 
@@ -288,8 +161,7 @@ def vcycle(
     zero because the defect is zero there).
     """
     return _vcycle_impl(psi, source, r_1d, d_r, d_z, omega,
-                        pre_smooth, post_smooth, min_grid, coarse_sweeps,
-                        use_pallas)
+                        pre_smooth, post_smooth, min_grid, coarse_sweeps)
 
 
 def mg_solve(
@@ -304,11 +176,10 @@ def mg_solve(
     pre_smooth: int = 3,
     post_smooth: int = 3,
     min_grid: int = 5,
-    use_pallas: bool = False,
 ) -> jnp.ndarray:
     """Run ``n_cycles`` V-cycles (standalone converged MG solve,
     reference ``multigrid_solve.py:352``)."""
     def body(_, p):
         return _vcycle_impl(p, source, r_1d, d_r, d_z, omega,
-                            pre_smooth, post_smooth, min_grid, 50, use_pallas)
+                            pre_smooth, post_smooth, min_grid, 50)
     return jax.lax.fori_loop(0, n_cycles, body, psi0)

@@ -17,8 +17,7 @@ matching the reference's Jacobi/SOR sub-solvers
 
 Everything here is a pure function of arrays + static floats: safe under
 ``jit``/``vmap``/``grad``/``shard_map``.  Sweep loops use ``lax.fori_loop`` so
-an arbitrary sweep count compiles to one on-device loop.  The Pallas
-VMEM-resident twin of the SOR sweep lives in ``ops/pallas_stencil.py``; this
+an arbitrary sweep count compiles to one on-device loop; this
 module is the portable reference implementation and the autodiff path.
 """
 

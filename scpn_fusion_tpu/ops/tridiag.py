@@ -1,6 +1,6 @@
 """Tridiagonal (Thomas) solver as ``lax.scan`` sweeps.
 
-TPU-native port of the reference's host-loop Thomas algorithm
+JAX-native port of the reference's host-loop Thomas algorithm
 (``integrated_transport_solver_runtime_utils.py:22-60``) following the design
 of its own JAX lane (``core/jax_solvers.py:123-167``): forward elimination and
 back substitution are two ``lax.scan`` passes, so a radial transport solve

@@ -48,7 +48,6 @@ def solve_equilibrium_batch(
     table = coil_response_table(grid, coil_r, coil_z, mu0)
     p_c, ff_c = profile_coeffs_from_physics(cfg.physics, dtype)
     sol = cfg.solver
-    use_pallas = sol.use_pallas and jax.default_backend() == "tpu"
 
     def solve_one(currents, i_t):
         psi_bc = jnp.einsum("c,czr->zr", currents, table)
@@ -61,7 +60,7 @@ def solve_equilibrium_batch(
             solver_method=sol.solver_method, max_iter=sol.max_iterations,
             h_mode=cfg.physics.profile_mode == "h-mode",
             inner_sweeps=sol.inner_sweeps, anderson_m=sol.anderson_depth,
-            mu0=mu0, use_gs_criterion=False, use_pallas=use_pallas)
+            mu0=mu0, use_gs_criterion=False)
         return res.psi, res.converged, res.iterations
 
     batched = jax.vmap(solve_one)
@@ -106,13 +105,7 @@ def solve_equilibrium_batch_mixed(
     table = coil_response_table(grid, coil_r, coil_z, mu0)
     p_c, ff_c = profile_coeffs_from_physics(cfg.physics, dtype)
     sol = cfg.solver
-    # Pallas stays OFF here: vmapping a pallas_call under jax_enable_x64
-    # promotes the added batch-grid indices to i64, which Mosaic cannot
-    # legalize ("func.return (i64, i64)", measured 2026-08-20).  The f32
-    # XLA V-cycle is the inner solver; the unbatched mixed paths keep
-    # their Pallas kernels.
-    elliptic = make_refinement_elliptic(grid, n_refine=n_refine,
-                                        use_pallas=False)
+    elliptic = make_refinement_elliptic(grid, n_refine=n_refine)
 
     def solve_one(currents, i_t):
         psi_bc = jnp.einsum("c,czr->zr", currents, table)
@@ -129,7 +122,6 @@ def solve_equilibrium_batch_mixed(
             inner_sweeps=sol.inner_sweeps, anderson_m=sol.anderson_depth,
             mu0=mu0,
             use_gs_criterion=sol.gs_residual_threshold > 0,
-            use_pallas=False,            # f64 path; Pallas lives in elliptic
             elliptic_fn=elliptic, anderson_gram_f32=True)
         return res.psi, res.converged, res.iterations, res.gs_residual_best
 

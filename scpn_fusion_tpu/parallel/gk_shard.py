@@ -1,6 +1,6 @@
 """Multi-chip sharding for the 5D nonlinear gyrokinetic state.
 
-TPU-native replacement for the reference's GK domain decomposition
+JAX-native replacement for the reference's GK domain decomposition
 (``core/gk_domain_decomposition.py:25-144`` radial/toroidal rank-tile plans
 with halo extents, executed via ``ProcessPoolExecutor``): here the 5D state
 f(s, kx, ky, theta, vpar, mu) is laid out with a ``NamedSharding`` over a
@@ -84,7 +84,7 @@ def run_nonlinear_gk_sharded(cfg: NonlinearGKConfig, mesh: Mesh,
 def spatial_velocity_mesh(n_ky: int, n_v: int, devices=None) -> Mesh:
     """2D (sy, v) mesh: toroidal spectral axis x velocity axis.
 
-    The ky x mu decomposition is the TPU counterpart of the reference's
+    The ky x mu decomposition is the mesh counterpart of the reference's
     radial x toroidal rank tiling (``gk_domain_decomposition.py:25-144``):
     ky is the memory-dominant spectral axis, so sharding it makes the 5D
     state scale with the mesh — the dimension the VERDICT flagged as

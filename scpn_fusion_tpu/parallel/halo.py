@@ -1,6 +1,6 @@
 """Spatial domain decomposition over the device mesh: Z-slab halo exchange.
 
-TPU-native replacement for the reference's MPI-shaped (but serially executed)
+JAX-native replacement for the reference's MPI-shaped (but serially executed)
 decomposition layer (``fusion-core/src/mpi_domain.rs:48-1367``: ``decompose_z``,
 ``pack_halo_rows``/``apply_halo_rows``, ``serial_halo_exchange``,
 ``distributed_gs_solve``): here the psi grid is sharded across a

@@ -1,6 +1,6 @@
 """2D Cartesian tile decomposition with halo exchange over a device mesh.
 
-TPU-native equivalent of the reference's 2D tiling layer
+JAX-native equivalent of the reference's 2D tiling layer
 (``fusion-core/src/mpi_domain.rs:380-739``: ``CartesianTile``,
 ``decompose_2d``, ``serial_halo_exchange_2d``, ``distributed_gs_solve`` with
 ``optimal_process_grid``): the psi grid is sharded over a 2D

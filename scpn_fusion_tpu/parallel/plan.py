@@ -1,6 +1,6 @@
 """Rank-tile decomposition planner for the 5D GK phase space.
 
-TPU-native port of the reference's
+JAX-native port of the reference's
 ``core/gk_domain_decomposition.py:25-260`` contract layer: explicit,
 validated radial x toroidal rank-tile plans with halo extents, plus the
 decomposition-invariant metrics (tile reductions == monolithic to

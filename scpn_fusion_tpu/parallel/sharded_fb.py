@@ -89,6 +89,5 @@ def solve_free_boundary_sharded(
         optimize_shape=bool(optimize_shape),
         tikhonov_alpha=float(tikhonov_alpha),
         mu0_green=float(mu0_green),
-        use_pallas=False,
         elliptic_fn=elliptic,
     )

@@ -4,7 +4,7 @@ Role parity with the reference's contracts layer
 (``scpn/contracts.py:250-494``: ``PhysicsInvariant`` + violation
 taxonomy + ``SafetyContract`` inhibitor verification), which VERDICT r3
 weak #7 noted was folded into the controller/interlocks here without a
-standalone audit surface.  TPU-first delta: alongside the host-side audit
+standalone audit surface.  accelerator-first delta: alongside the host-side audit
 dataclasses, the invariant set compiles to ONE vectorised jittable check
 (:func:`invariant_table`, :func:`check_invariants_compiled`) so a whole
 flight-sim trajectory or a vmapped shot batch can be audited on device in

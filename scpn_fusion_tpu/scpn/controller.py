@@ -1,6 +1,6 @@
 """Neuro-symbolic SCPN controller runtime, fully jitted and on-device.
 
-TPU-native redesign of the reference's controller tick
+Compiled redesign of the reference's controller tick
 (``scpn/controller.py:345-469`` + ``controller_backend_mixin.py`` +
 ``controller_features_mixin.py``): feature extraction (error -> unipolar
 pos/neg), place injection, float "oracle" path AND deterministic stochastic
@@ -8,7 +8,7 @@ path (antithetic Bernoulli passes, mantissa bit-flip fault injection,
 per-transition delay ring buffer), and action decoding with gain /
 slew-rate / absolute clamps — all as one pure jitted step on dense arrays.
 
-Design deltas vs the reference (deliberate, TPU-first):
+Design deltas vs the reference (deliberate, accelerator-first):
 * The packed-uint64 bitstream stochastic-computing path (AND+popcount,
   ``compiler.py:81-216``) is replaced by antithetic-pair Bernoulli sampling
   with ``jax.random.fold_in(key, k)`` — the same deterministic-by-tick

@@ -6,7 +6,7 @@ transitions with thresholds and integer tick delays, Place->Transition input
 arcs (optionally inhibitor, stored as negative weights) and
 Transition->Place output arcs.  ``compile()`` produces dense incidence
 matrices — this framework feeds them straight to the jitted controller
-runtime (``scpn/controller.py``), where a dense matvec on the MXU replaces
+runtime (``scpn/controller.py``), where a dense matvec as one matmul replaces
 the reference's sparse matrices + packed uint64 bitstream path.
 
 Topology diagnostics (dead transitions/places, unseeded source places) are

@@ -207,8 +207,8 @@ def generate_html_dashboard(
         for name, rel, sha in artifacts if rel is not None)
 
     hero = (f'<div class="tile"><div class="v hero">{bench_value:g} ms'
-            f'</div><div class="l">513² converged GS solve, one TPU chip '
-            f'(driver-measured; {bench_speedup:g}× the NumPy twin)</div>'
+            f'</div><div class="l">513² converged GS solve (bench.py; '
+            f'{bench_speedup:g}× the NumPy twin)</div>'
             '</div>') if bench_value is not None else ""
 
     chart = _bar_chart_svg(sparc_rows, 0.05,

@@ -1,7 +1,7 @@
 """Live mission-control dashboard: stdlib HTTP server + polling UI.
 
 Role parity with the reference's Streamlit app (``ui/app.py:71`` — live
-equilibrium view, controller traces, health panels).  TPU-first, zero-GUI
+equilibrium view, controller traces, health panels).  accelerator-first, zero-GUI
 -dependency redesign: a background worker thread drives the COMPILED
 equilibrium solver in a loop (each tick re-solves with a slowly wandering
 plasma-current target — warm-started, so each tick is a few ms of device

@@ -11,8 +11,8 @@ families produced, and the backends that can execute it.
 
 Self-contained (the ``scpn_studio_platform`` SDK is not in this image):
 the enums are frozen string sets here, and the backend vocabulary is
-this repo's actual execution tiers — ``tpu-xla`` (jit/pjit), ``pallas``
-(hand kernels), ``cpp-native`` (the C ABI runtime), ``python``
+this repo's actual execution tiers — ``gpu-xla`` (jit/pjit on the
+GPU), ``cpp-native`` (the C ABI runtime), ``python``
 (NumPy twins / host orchestration) — instead of the reference's
 rust/julia/go matrix.  No verb is live-hardware: everything is
 simulated or read-only, every tier is research (same invariant the
@@ -46,7 +46,7 @@ SIDE_EFFECTS = frozenset({"read-only", "simulated"})
 TIMING_CLASSES = frozenset({"batch", "realtime"})
 FIDELITIES = frozenset({"first-principles", "analytic", "reduced-order",
                         "ml-surrogate"})
-BACKENDS = frozenset({"tpu-xla", "pallas", "cpp-native", "python"})
+BACKENDS = frozenset({"gpu-xla", "cpp-native", "python"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,28 +91,27 @@ FUSION_VERBS = (
     # core spine
     Verb("reconstruct", "read-only", "batch", "first-principles",
          ("studio.equilibrium-reconstruction.v1",),
-         ("tpu-xla", "pallas", "cpp-native", "python")),
+         ("gpu-xla", "cpp-native", "python")),
     Verb("simulate", "simulated", "batch", "first-principles",
          ("studio.transport-solution.v1",),
-         ("tpu-xla", "pallas", "cpp-native", "python")),
+         ("gpu-xla", "cpp-native", "python")),
     Verb("analyse", "read-only", "batch", "analytic",
          ("studio.gyrokinetic-parity.v1", "studio.mhd-stability.v1"),
-         ("tpu-xla", "python")),
+         ("gpu-xla", "python")),
     Verb("validate", "read-only", "batch", "analytic",
          ("studio.physics-validation.v1",), ("python",)),
     Verb("benchmark", "simulated", "batch", "analytic",
          ("studio.solver-benchmark.v1",),
-         ("tpu-xla", "pallas", "cpp-native", "python")),
+         ("gpu-xla", "cpp-native", "python")),
     Verb("replay", "read-only", "batch", "analytic",
          ("studio.evidence-replay.v1",), ("python",)),
     # fusion-distinctive
     Verb("control", "simulated", "realtime", "reduced-order",
-         ("studio.control-replay.v1",), ("tpu-xla", "python"),
+         ("studio.control-replay.v1",), ("gpu-xla", "python"),
          deadline_us=100.0),   # the 10 kHz loop period the fused
                                # controller tick is benchmarked against
-                               # (control_latency.json: 9.4 us/tick)
     Verb("predict", "read-only", "batch", "ml-surrogate",
-         ("studio.disruption-forecast.v1",), ("tpu-xla", "python")),
+         ("studio.disruption-forecast.v1",), ("gpu-xla", "python")),
 )
 
 
@@ -125,8 +124,8 @@ def capability_block() -> dict:
         "evidence_schemas": list(EVIDENCE_SCHEMAS),
         "scope_boundaries": [
             "no live-hardware verb: all execution simulated or read-only",
-            "single-language compute path (JAX/XLA/Pallas) + C++ runtime; "
+            "single-language compute path (JAX/XLA) + C++ runtime; "
             "no rust/julia/go tiers",
-            "TPU f32/bf16 on device; f64 twins on host CPU only",
+            "f32/f64 on the GPU; f64 twins on the host CPU",
         ],
     }

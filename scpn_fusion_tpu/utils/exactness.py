@@ -18,7 +18,7 @@ value digests are taken over the little-endian float64 byte image, not
 a decimal repr, so producer and verifier agree byte-for-byte.
 
 This matters here because float kernels are not bit-reproducible across
-the backends this framework actually spans (TPU f32/bf16, CPU x64 twin,
+the backends this framework actually spans (GPU f32/bf16, CPU x64 twin,
 the C++ native runtime): a *correct* re-run yields different bits, and
 a naive digest gate would read as tampering.  The repo's replay
 certificate re-keys on any source change; this module supplies the

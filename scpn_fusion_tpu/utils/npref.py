@@ -4,7 +4,7 @@ Mirrors the reference framework's dual-backend strategy (every accelerated
 path has a NumPy twin used as a parity fixture, ``ARCHITECTURE.md:175-178``):
 these implementations follow the reference's NumPy semantics
 (``fusion_kernel_iterative_solver.py``, ``multigrid_solve.py``) and are used
-by the test-suite to pin the JAX/Pallas kernels' behaviour.  They are NOT on
+by the test-suite to pin the JAX kernels' behaviour.  They are NOT on
 any hot path.
 """
 

@@ -135,7 +135,7 @@ def test_anderson_not_slower_than_sor():
 
 
 def test_f32_matches_f64_span_relative():
-    """f32 (TPU production dtype) must track the f64 solve to span-relative
+    """f32 (the device production dtype) must track the f64 solve to span-relative
     tolerance — the reference pins span-relative comparisons for compiled
     lanes (jax_predictive_forward_compiled.py:23-27)."""
     cfg = make_cfg("sor")
@@ -192,6 +192,38 @@ class TestFMGCascade:
         assert dev < 1e-3, dev
         # Warm start must not be slower than the cold fine solve.
         assert info[-1]["iterations"] <= int(direct.iterations)
+
+    def test_fmg_gates_only_the_finest_level_on_gs_residual(self):
+        """Coarse levels stop on the update criterion alone; the GS-residual
+        threshold gates the finest level.  At 1e-6 the threshold binds on
+        every level of a 17 -> 33 -> 65 cascade when applied to all of them
+        (6, 5, 5 iterations); gating only the finest gives 5, 4, 5."""
+        import dataclasses
+
+        from scpn_fusion_tpu.models.equilibrium.fixed_boundary import (
+            solve_equilibrium_fmg,
+        )
+
+        base = make_cfg("anderson_mg", n=65, max_iter=300, anderson_depth=4)
+        base = dataclasses.replace(base, solver=dataclasses.replace(
+            base.solver, relaxation_factor=1.0))
+
+        def cascade(threshold):
+            cfg = dataclasses.replace(base, solver=dataclasses.replace(
+                base.solver, gs_residual_threshold=threshold))
+            return solve_equilibrium_fmg(cfg, min_coarse=17,
+                                         dtype=jnp.float64)
+
+        free, info_free = cascade(0.0)
+        gated, info_gated = cascade(1e-6)
+        its_free = [lv["iterations"] for lv in info_free]
+        its_gated = [lv["iterations"] for lv in info_gated]
+        assert all(lv["converged"] for lv in info_gated)
+        assert its_gated[:-1] == its_free[:-1]
+        assert its_gated[-1] > its_free[-1]
+        hist = np.asarray(gated.gs_residual_history)
+        assert hist[int(gated.iterations) - 1] < 1e-6
+        assert float(gated.gs_residual) < float(free.gs_residual)
 
     def test_fmg_rejects_nonsquare(self):
         import dataclasses

@@ -127,7 +127,7 @@ class TestGyroSwin:
         # transiently loaded host (parallel bench/compile jobs) cannot
         # flake the gate; the surrogate wins by >5x on an idle machine.
         # The hard floor is 2.0: a fully-contended host (whole suite +
-        # on-chip bench compiling concurrently) squeezes the measured
+        # device bench compiling concurrently) squeezes the measured
         # ratio to ~2.8, and the claim under test is "surrogate beats
         # the proxy", not the idle-machine margin.
         best = 0.0

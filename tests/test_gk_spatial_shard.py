@@ -61,7 +61,7 @@ class TestSpatialShardedEvolution:
     # (8, 1) — ky over all 8 devices with a trivial 'v' axis — aborts
     # inside XLA's CPU compiler (SIGABRT in backend_compile_and_load) on
     # this jaxlib; (2,4)/(4,2) exercise the same ky transpose contract
-    # with a non-trivial velocity axis and compile fine on CPU and TPU.
+    # with a non-trivial velocity axis and compile fine on CPU and GPU.
     @pytest.mark.parametrize("shape", [(2, 4), (4, 2)])
     def test_state_parity_across_meshes(self, shape):
         cfg = _cfg()

@@ -81,7 +81,7 @@ class TestLinearGK:
         assert abs(gamma_eig) < 1e-6
 
     def test_initial_value_matches_eig_gamma(self):
-        """The TPU-safe initial-value extraction agrees with dense eig on the
+        """The device-safe initial-value extraction agrees with dense eig on the
         (near-zero) dominant growth rate of the parity matrix."""
         ion = deuterium_ion()
         geom = circular_geometry(n_theta=24)

@@ -145,7 +145,7 @@ def test_batch_freeze_guard_with_straggler():
     FROZEN at their own convergence point (guarded while-body), matching
     their standalone solves even while the straggler keeps iterating —
     without the guard the vmapped loop kept Picard-iterating converged
-    elements (measured 2.7e-3 span-rel drift at B=16 on the TPU lane)."""
+    elements (measured 2.7e-3 span-rel drift at B=16 in f32)."""
     cfg = make_cfg("multigrid", n=33, max_iter=300)
     grid = Grid.from_config(cfg, dtype=np.float64)
     base = jnp.asarray([c.current * c.turns for c in cfg.coils], jnp.float64)

@@ -403,7 +403,7 @@ class TestBatchedElementParitySweep:
         in f64 (the guarded while-body freezes converged elements, so
         batch context cannot perturb a member's trajectory).  This is
         the hypothesis sweep behind the campaign's single B=16 f32
-        datapoint (batched_amortisation.json, dev 0.0027 vs 5e-3 gate)."""
+        datapoint (``validation/run_batched_amortisation.py`` lane 1)."""
         import jax.numpy as jnp
 
         from scpn_fusion_tpu.core.grid import Grid

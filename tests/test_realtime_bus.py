@@ -95,3 +95,23 @@ def test_three_process_closed_loop_session():
     assert res.diagnostics["n_seen"] == n_ticks
     assert res.diagnostics["disrupted_any"] is False
     assert res.diagnostics["r_err_rms_window"] < 0.05
+
+
+def test_diagnostics_counts_the_tick_published_before_stop():
+    """The physics node publishes its last tick and then stops the
+    session; the diagnostics node still reads and counts that tick."""
+    import threading
+
+    from scpn_fusion_tpu.control.realtime_bus import (
+        KEY_TELEMETRY,
+        diagnostics_node,
+    )
+
+    bus = {KEY_TELEMETRY: {"seq": 399, "t_sim": 3.99, "r": 6.2, "z": 0.0,
+                           "ip_ma": 15.0, "beta": 0.7, "heating": 25.0,
+                           "disrupted": False}}
+    stop = threading.Event()
+    stop.set()
+    diagnostics_node(bus, stop, FlightSimParams())
+    assert "diagnostics_error" not in bus
+    assert bus["diagnostics_summary"]["n_seen"] == 400

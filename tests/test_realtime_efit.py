@@ -98,4 +98,4 @@ class TestReconstruction:
             reconstruct(model, meas, coil_i,
                         jnp.asarray(1e6)).psi.block_until_ready()
         dt_ms = (time.perf_counter() - t0) / 50 * 1e3
-        assert dt_ms < 50.0  # generous CPU bound; µs-scale on TPU
+        assert dt_ms < 50.0  # generous CPU bound

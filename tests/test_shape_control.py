@@ -174,7 +174,7 @@ class TestTracking:
         cfg = _cfg()
         grid = Grid.from_config(cfg, dtype=np.float64)
         coils = coilset_from_config(cfg, DTYPE)
-        psi0 = fbt._plant_solve(coils, cfg, grid, False)
+        psi0 = fbt._plant_solve(coils, cfg, grid)
         obj0 = fbt.soft_objectives(psi0, grid)
         targets = obj0 + jnp.asarray([-0.05, 0.04, 0.0, 0.0], DTYPE)
         trace = fbt.run_tracking_shot(
@@ -209,7 +209,7 @@ class TestTracking:
         cfg = _cfg()
         grid = Grid.from_config(cfg, dtype=np.float64)
         coils = coilset_from_config(cfg, DTYPE)
-        psi0 = fbt._plant_solve(coils, cfg, grid, False)
+        psi0 = fbt._plant_solve(coils, cfg, grid)
         obj0 = fbt.soft_objectives(psi0, grid)
         # Target far outside the severe threshold -> SEVERE from tick 0,
         # action replaced by a bounded ramp toward fallback (= initial)

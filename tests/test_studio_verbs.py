@@ -62,3 +62,18 @@ def test_manifest_carries_capabilities(tmp_path):
     assert m["capabilities"]["studio_id"] == "scpn-fusion-tpu"
     assert len(m["capabilities"]["verbs"]) == 8
     assert m["n_entries"] > 0
+
+
+def test_device_tier_is_the_gpu():
+    from scpn_fusion_tpu.ui.studio_verbs import BACKENDS
+    assert BACKENDS == {"gpu-xla", "cpp-native", "python"}
+    compute = [v for v in FUSION_VERBS if v.name != "validate"
+               and v.name != "replay"]
+    assert all("gpu-xla" in v.backends for v in compute)
+
+
+@pytest.mark.parametrize("tier", ["julia", "go"])
+def test_unlisted_tiers_are_rejected(tier):
+    with pytest.raises(ValueError, match="backends"):
+        Verb("x", "read-only", "batch", "analytic",
+             ("studio.evidence-replay.v1",), (tier,))

@@ -13,7 +13,7 @@ not fail the pipeline — fail-closed semantics live inside each lane).
 
 Usage:
     python validation/run_all.py            # everything
-    python validation/run_all.py --quick    # skip the slow TPU/stress set
+    python validation/run_all.py --quick    # skip the slow GPU/stress set
 """
 
 import json
@@ -27,7 +27,7 @@ REPORTS = HERE / "reports"
 
 # Campaigns needing the real chip or long wall-clock; skipped by --quick.
 SLOW = {
-    "run_pallas_tpu.py", "run_sharded_gs_tpu.py", "run_stress_campaign.py",
+    "run_stress_campaign.py",
     "run_micro_kernels.py",
     "run_batched_amortisation.py", "run_real_shot_accuracy.py",
     "run_free_boundary_forward.py", "run_resolution_scaling.py",

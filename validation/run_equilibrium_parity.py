@@ -22,6 +22,7 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
 
+    from scpn_fusion_tpu.core import backend as backend_mod
     from scpn_fusion_tpu.core.grid import Grid
     from scpn_fusion_tpu.models.equilibrium.solovev import SolovevParams
     from scpn_fusion_tpu.ops import multigrid as mg
@@ -29,29 +30,29 @@ def main() -> int:
     from scpn_fusion_tpu.utils.evidence import LaneResult, write_report
 
     lanes = []
-    on_tpu = jax.default_backend() == "tpu"
-    dtype = jnp.float32 if on_tpu else jnp.float64
+    # On the GPU the lanes run the device's f32 production precision.
+    on_gpu = backend_mod.device_info().platform == "gpu"
+    dtype = jnp.float32 if on_gpu else jnp.float64
 
     # ── Lane 1: Solov'ev analytic ──
     params = SolovevParams()
 
     def solovev_err(n):
         grid = Grid.from_bounds(n, n, 3.0, 9.0, -3.0, 3.0,
-                                dtype=np.float32 if on_tpu else np.float64)
+                                dtype=np.float32 if on_gpu else np.float64)
         psi_exact = params.psi(grid.RR, grid.ZZ).astype(dtype)
         src = params.source(grid.RR).astype(dtype)
         psi0 = apply_dirichlet(jnp.zeros_like(psi_exact), psi_exact)
-        out = mg.mg_solve(psi0, src, grid.R, grid.dR, grid.dZ, n_cycles=30,
-                          use_pallas=on_tpu)
+        out = mg.mg_solve(psi0, src, grid.R, grid.dR, grid.dZ, n_cycles=30)
         span = float(jnp.max(psi_exact) - jnp.min(psi_exact))
         return float(jnp.max(jnp.abs(out - psi_exact))) / span
 
     e65 = solovev_err(65)
     e129 = solovev_err(129)
     # f32 floors near 1e-6 span-rel; gates per-precision.
-    gate = 2e-4 if not on_tpu else 2e-3
+    gate = 2e-4 if not on_gpu else 2e-3
     # Order check cannot be resolved once the fine-grid error sits at the
-    # f32 rounding floor (~1e-5 span-rel on TPU); below that floor the
+    # f32 rounding floor (~1e-5 span-rel); below that floor the
     # solve is as exact as the precision allows.
     order_ok = (e65 / max(e129, 1e-12)) > 2.5 or e129 < 1e-5
     lanes.append(LaneResult(
@@ -79,7 +80,7 @@ def main() -> int:
         for rel, gate_v in cases:
             eq = read_geqdsk(ref_data / rel)
             res = solve_from_geqdsk(eq, max_iter=400,
-                                    dtype=jnp.float32 if on_tpu else jnp.float64)
+                                    dtype=jnp.float32 if on_gpu else jnp.float64)
             rmse = float(res.span_rel_rmse)
             key = rel.split("/")[-1]
             metrics[f"{key}.span_rel_rmse"] = rmse
@@ -125,7 +126,7 @@ def main() -> int:
         psi_bc, 15.0, mu0=1.0, max_iter=600, tol=1e-4, alpha=0.1)
     span = np_res["psi"].max() - np_res["psi"].min()
     dev = float(np.max(np.abs(np.asarray(res.psi, np.float64) - np_res["psi"])) / span)
-    gate3 = 1e-3 if on_tpu else 1e-6
+    gate3 = 1e-3 if on_gpu else 1e-6
     lanes.append(LaneResult(
         name="numpy_twin_parity",
         status="pass" if (bool(res.converged) and np_res["converged"]

@@ -1,12 +1,12 @@
 #!/usr/bin/env python
-"""Cross-implementation GS-kernel parity: C++ / NumPy / JAX / TPU.
+"""Cross-implementation GS-kernel parity: C++ / NumPy / JAX CPU / JAX GPU.
 
 Counterpart of the reference's polyglot solver comparison
 (``benchmarks/polyglot_gs_solver_comparison.py``: the SAME GS case solved
 by the Python, Rust, Go and Julia ports and cross-checked).  This repo's
 implementation inventory is C++ (``native/gs_runtime.cpp``, the reference
 HPC-bridge analogue), the NumPy twin (``utils/npref.py``), and the JAX/XLA
-path (``ops/stencil.py``) on CPU f64 and TPU f32 — Go/Julia are
+path (``ops/stencil.py``) on CPU f64 and GPU f32 — Go/Julia are
 out-of-scope per SURVEY section 2.11, and this lane covers the same
 intent: independent implementations of the same kernel agreeing on the
 same problem.
@@ -25,10 +25,10 @@ Lanes (fail-closed):
    residual convergence; pairwise span-rel deviation <= 1e-8 AND every
    implementation's error vs psi_exact within 1.5x of the best (no
    implementation converges to a different fixed point).
-3. ``tpu_f32_parity`` — the Pallas VMEM-resident SOR kernel (TPU) runs
-   the same sweep count as the NumPy twin; span-rel deviation <= 1e-5
-   (f32).  Blocked (not passed) off-TPU; the C++ lane is skipped
-   honestly when no toolchain exists (this image has g++).
+3. ``gpu_f32_parity`` — the XLA SOR sweep compiled for the GPU runs the
+   same sweep count in f32 as the NumPy twin in f64; span-rel deviation
+   <= 1e-5.  Blocked (not passed) without a GPU; the C++ lane is skipped
+   honestly when no toolchain exists.
 """
 
 import sys
@@ -53,11 +53,11 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
 
+    from scpn_fusion_tpu.core import backend as backend_mod
     from scpn_fusion_tpu.native import runtime as native_rt
     from scpn_fusion_tpu.utils import npref
     from scpn_fusion_tpu.utils.evidence import LaneResult, write_report
 
-    backend = jax.default_backend()
     lanes = []
 
     r_1d, d_r, d_z, psi_exact = _problem()
@@ -150,28 +150,28 @@ def main() -> int:
               "implementation lands on the same solution of the same "
               "manufactured problem"))
 
-    # ── 3. TPU f32 Pallas kernel vs the f64 consensus ─────────────────
-    if backend == "tpu":
-        from scpn_fusion_tpu.ops.pallas_stencil import sor_sweeps_pallas
+    # ── 3. GPU f32 XLA sweep vs the f64 consensus ─────────────────────
+    if backend_mod.device_info().platform == "gpu":
+        from scpn_fusion_tpu.ops.stencil import sor_sweeps
         n_sw = 400
         ref = numpy_sweeps(n_sw)
-        out = sor_sweeps_pallas(
+        out = sor_sweeps(
             jnp.asarray(psi0, jnp.float32), jnp.asarray(source, jnp.float32),
             jnp.asarray(r_1d, jnp.float32), d_r, d_z,
-            jnp.asarray(1.6, jnp.float32), n_sw, interpret=False)
+            1.6, n_sw)
         dev = float(np.max(np.abs(np.asarray(out, np.float64) - ref))) / span
         ok = dev < 1e-5
         lanes.append(LaneResult(
-            name="tpu_f32_parity",
+            name="gpu_f32_parity",
             status="pass" if ok else "fail",
             metrics={"span_rel_dev_vs_numpy_f64": dev, "n_sweeps": n_sw},
             thresholds={"span_rel_dev_vs_numpy_f64": 1e-5},
-            notes="Pallas VMEM-resident red-black kernel on the real chip "
-                  "vs the f64 NumPy twin, same sweep count"))
+            notes="XLA red-black sweep compiled for the GPU, f32, vs the "
+                  "f64 NumPy twin, same sweep count"))
     else:
         lanes.append(LaneResult(
-            name="tpu_f32_parity", status="blocked",
-            notes="TPU backend unavailable in this environment"))
+            name="gpu_f32_parity", status="blocked",
+            notes="no GPU in this environment"))
 
     path = write_report("implementation_parity", lanes)
     print(f"wrote {path}")

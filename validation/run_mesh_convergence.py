@@ -56,8 +56,7 @@ def main() -> int:
         psi0 = apply_dirichlet(jnp.zeros_like(psi_exact), psi_exact)
         # Enough V-cycles that algebraic error sits far below the
         # discretisation error at every resolution.
-        out = mg.mg_solve(psi0, src, grid.R, grid.dR, grid.dZ, n_cycles=40,
-                          use_pallas=False)
+        out = mg.mg_solve(psi0, src, grid.R, grid.dR, grid.dZ, n_cycles=40)
         span = float(jnp.max(psi_exact) - jnp.min(psi_exact))
         err = out - psi_exact
         linf = float(jnp.max(jnp.abs(err))) / span

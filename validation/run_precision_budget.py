@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """f32-vs-f64 error-budget campaign (VERDICT r1 weak #3 completion).
 
-The TPU lane runs f32 (x64 disabled); the reference's headline parity
+The device lanes run f32; the reference's headline parity
 numbers are FP64 (BASELINE.md "129^2 FP64", precedent
 ``validation/benchmark_rung2_fp64.py``).  This campaign quantifies what
 f32 costs on this framework's own solves, on CPU where both precisions
@@ -98,7 +98,7 @@ def main() -> int:
         },
         thresholds={"span_rel_deviation_f32_vs_f64": gate_dev},
         notes="full compiled multigrid-Picard solve per precision; the "
-              "TPU bench lane is f32, so this number IS the headline "
+              "bench lane is f32, so this number IS the headline "
               "precision penalty"))
 
     # ── Lane 2: raw MG operator, residual floors per precision ──
@@ -144,7 +144,7 @@ def main() -> int:
         notes="discrete-exact MG solve: each precision reaches its own "
               "epsilon floor; the f32 floor (~1e-5 span-rel) is 3 orders "
               "below the tightest physics gate, which is the basis for "
-              "running the TPU lane in f32"))
+              "running the device lanes in f32"))
 
     # ── Lane 3: mixed-precision (f32 V-cycle + f64 residual) 513^2 ──
     # VERDICT r3 weak #1 / next #2: the headline grid must converge on the
@@ -199,9 +199,8 @@ def main() -> int:
               "buffers with f32 Gram solve; converges on the GS-residual "
               "criterion at the headline grid, which the pure-f32 path "
               "cannot (its measured residual stalls ~1e-3 from rounding "
-              "noise alone).  Device timing for this path is benched on "
-              "TPU in bench.py (stderr datapoint) and the pallas_tpu "
-              "campaign."))
+              "noise alone).  Device timing for this path is not "
+              "measured here."))
 
     path = write_report("precision_budget", lanes)
     print(f"wrote {path}")

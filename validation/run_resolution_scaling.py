@@ -6,12 +6,12 @@ equilibrium artifact is 129^2 (H100 predictive forward) and its own
 resolution-scaling story is multigrid + AMR + (serial) domain decomposition
 (SURVEY.md section 5.7).  This campaign runs the SAME FMG
 Anderson-MG-Picard cascade as the 513^2 headline bench at 4x and 16x the
-grid points on one TPU chip, demonstrating the O(N) multigrid cost model
+grid points on one device, demonstrating the O(N) multigrid cost model
 holds to 4.2M points:
 
 1. ``anchor_513`` — the headline configuration re-measured in-campaign
    (cross-reference for the scaling ratios; the canonical number lives in
-   bench.py / BENCH_r*.json).
+   bench.py).
 2. ``capability_1025`` — converged 1025^2 solve, slope-timed, span-rel
    parity vs the algorithm-matched NumPy FMG twin (the same oracle the
    headline uses).
@@ -21,7 +21,7 @@ holds to 4.2M points:
    GS-residual criterion.  Pure f32 is measurably NOT convergent at this
    size: the update-diff criterion (1e-4) sits below the f32 roundoff
    floor of the 4.2M-point iterate and the solve rides the 600-iteration
-   cap (measured 2026-08-19) — the exact failure mode SURVEY section 7
+   cap — the exact failure mode SURVEY section 7
    prescribes mixed precision for.  The NumPy twin at 2049^2 costs
    ~40 s/solve; the f64-criterion convergence is the accuracy gate here
    (disclosed).
@@ -29,19 +29,11 @@ holds to 4.2M points:
    iteration must grow <= 2.5x from 513^2 to 1025^2 (O(N) multigrid;
    iteration-count drift is normalised out, bandwidth slack allowed).
 
-Pallas note (round 5): fine levels ABOVE the whole-grid VMEM budget now
-run as TILED fused kernels (``ops/pallas_mg_tiled.py``: Z-chunked legs
-with redundant-compute halo strips) and the even-point transfer
-compaction runs as exact MXU selection matmuls
-(``ops/multigrid.downsample_even_mxu``/``upsample_even_mxu``) — measured
-1025^2 V-cycle 3.57 -> 0.70 ms, erasing the r4 1.85x per-point
-regression this campaign gates (VERDICT r4 next #2).
-
 5. ``capability_4097_mixed`` — stretch (VERDICT r4 #10): 16.8M points on
-   one chip, same mixed-precision protocol as 2049^2, k=1 vs 2 chained.
+   one device, same mixed-precision protocol as 2049^2, k=1 vs 2 chained.
 
-Fail-closed: every lane computes real numbers on the real chip; a
-non-TPU environment blocks (does not pass) the device lanes.
+Fail-closed: every lane computes real numbers on the GPU; an environment
+without one blocks (does not pass) the device lanes.
 """
 
 import dataclasses
@@ -59,6 +51,7 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
 
+    from scpn_fusion_tpu.core import backend as backend_mod
     from scpn_fusion_tpu.core.config import (
         Coil, Dimensions, PhysicsParams, ReactorConfig, SolverParams,
     )
@@ -76,14 +69,13 @@ def main() -> int:
     from scpn_fusion_tpu.utils import npref
     from scpn_fusion_tpu.utils.evidence import LaneResult, write_report
 
-    backend = jax.default_backend()
     lanes = []
-    if backend != "tpu":
+    if backend_mod.device_info().platform != "gpu":
         for name in ("anchor_513", "capability_1025", "capability_2049",
                      "capability_4097", "on_scaling"):
             lanes.append(LaneResult(
                 name=name, status="blocked",
-                notes="TPU backend unavailable in this environment"))
+                notes="no GPU in this environment"))
         path = write_report("resolution_scaling", lanes)
         print(f"wrote {path}")
         return 0
@@ -110,7 +102,6 @@ def main() -> int:
             ),
         )
 
-    use_pallas = True
     coarse_tol = 1e-3
 
     def measure(n_fine, k_hi=5):
@@ -141,7 +132,7 @@ def main() -> int:
                 max_iter=sol.max_iterations, h_mode=False,
                 inner_sweeps=sol.inner_sweeps,
                 anderson_m=sol.anderson_depth, mu0=1.0,
-                use_gs_criterion=False, use_pallas=use_pallas,
+                use_gs_criterion=False,
                 skip_seed=skip_seed,
                 mg_pre_smooth=sol.mg_pre_smooth,
                 mg_post_smooth=sol.mg_post_smooth,
@@ -225,8 +216,7 @@ def main() -> int:
         from scpn_fusion_tpu.models.equilibrium.mixed_precision import (
             make_refinement_elliptic,
         )
-        elliptic = make_refinement_elliptic(grid64, n_refine=2,
-                                            use_pallas=use_pallas)
+        elliptic = make_refinement_elliptic(grid64, n_refine=2)
 
         def _c32(m, psi_init, i_t, skip_seed):
             return _solve_fixed_boundary(
@@ -239,7 +229,7 @@ def main() -> int:
                 solver_method="anderson_mg", max_iter=sol.max_iterations,
                 h_mode=False, inner_sweeps=sol.inner_sweeps,
                 anderson_m=sol.anderson_depth, mu0=1.0,
-                use_gs_criterion=False, use_pallas=use_pallas,
+                use_gs_criterion=False,
                 skip_seed=skip_seed, mg_pre_smooth=sol.mg_pre_smooth,
                 mg_post_smooth=sol.mg_post_smooth)
 
@@ -265,7 +255,7 @@ def main() -> int:
                     max_iter=sol.max_iterations, h_mode=False,
                     inner_sweeps=sol.inner_sweeps,
                     anderson_m=sol.anderson_depth, mu0=1.0,
-                    use_gs_criterion=True, use_pallas=False,
+                    use_gs_criterion=True,
                     elliptic_fn=elliptic, skip_seed=True,
                     anderson_gram_f32=True)
                 conv = conv & r.converged
@@ -418,9 +408,7 @@ def main() -> int:
                  "ns_per_point_2049_mixed": round(m2049["ns_per_point"],
                                                   2)},
         thresholds={"ratio_1025_over_513": "<= 1.5 per 4x points "
-                    "(O(N) multigrid per-iteration cost; ideal 1.0 — "
-                    "tightened from 2.5 after the tiled fine-level "
-                    "kernels + MXU transfer compaction landed, r5)"},
+                    "(O(N) multigrid per-iteration cost; ideal 1.0)"},
         notes="f32 device cost per grid point per fine-level iteration: "
               "the multigrid O(N) cost model holds on-chip through "
               "1025^2; the 2049^2 mixed figure is recorded alongside "

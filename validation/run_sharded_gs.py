@@ -11,7 +11,7 @@ Lanes (fail-closed, blocked != pass):
 3. sharded_scaling_shape     — per-sweep wall-clock vs shard count on the
    virtual CPU mesh.  This is a SHAPE diagnostic (virtual devices share
    host cores, so speedup is not expected); recorded honestly as such.
-   The single-chip TPU perf datapoint is the driver's bench.py lane.
+   The single-device perf datapoint is bench.py.
 4. sharded_vs_plain_program  — n_shards=1 through the shard_map program
    vs the plain single-device sweep path: the distributed-program
    overhead and numerical identity on one device.

@@ -65,7 +65,7 @@ def main() -> int:
                             relaxation_factor=0.1, solver_method="multigrid"))
     grid = Grid.from_config(cfg, dtype=np.float64)
     coils = coilset_from_config(cfg, dtype)
-    psi0 = fbt._plant_solve(coils, cfg, grid, False)
+    psi0 = fbt._plant_solve(coils, cfg, grid)
     obj0 = fbt.soft_objectives(psi0, grid)
     step = jnp.asarray([-0.05, 0.04, 0.0, 0.0], dtype)
     targets = obj0 + step

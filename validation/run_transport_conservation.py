@@ -5,7 +5,7 @@ Mirrors the reference's transport contract lanes
 (`validation/benchmark_multi_ion_transport_conservation.py` — quasineutral
 residual <= 1e-10, physically-sane He-ash trajectory — and
 `validation/benchmark_transport_power_balance.py` — auxiliary-heating
-power-balance reconstruction) for the TPU-native 1.5D stepper
+power-balance reconstruction) for the compiled 1.5D stepper
 (`models/transport/solver.py`).
 
 Lanes (fail-closed):
